@@ -1,0 +1,65 @@
+"""PageRank transition matrix H from an edge list.
+
+``H[i, j] = 1 / outdeg(j)`` when there is an edge j -> i (column-stochastic).
+Dangling nodes (outdeg 0) get uniform columns ``1/N`` when the fix is on.
+Every layout is built in numpy exactly as ``repro.graph.transition`` builds
+it, so the two packages' layouts are bit-identical, and only then placed on
+the requested device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.graph.sparse import CSRMatrix
+from repro_torch.kernels.common import resolve_device
+
+__all__ = ["dangling_fix", "transition_dense_np", "build_transition_dense",
+           "build_transition_csr", "dangling_mask"]
+
+
+def dangling_fix(H: np.ndarray) -> np.ndarray:
+    """Replace all-zero columns with uniform 1/N (numpy, host-side)."""
+    H = np.array(H, np.float32, copy=True)
+    n = H.shape[0]
+    colsum = H.sum(axis=0)
+    dangling = colsum == 0
+    H[:, dangling] = 1.0 / n
+    return H
+
+
+def transition_dense_np(src: np.ndarray, dst: np.ndarray, n: int,
+                        fix_dangling: bool = True) -> np.ndarray:
+    """Dense column-stochastic H as a host float32 array."""
+    A = np.zeros((n, n), np.float32)
+    A[dst, src] = 1.0                       # edge src -> dst contributes H[dst, src]
+    outdeg = np.bincount(src, minlength=n).astype(np.float32)
+    nz = outdeg > 0
+    A[:, nz] /= outdeg[nz]
+    if fix_dangling:
+        A = dangling_fix(A)
+    return A
+
+
+def build_transition_dense(src: np.ndarray, dst: np.ndarray, n: int,
+                           fix_dangling: bool = True,
+                           device: str | torch.device | None = None
+                           ) -> torch.Tensor:
+    """Dense column-stochastic H (the paper's fabric layout) on
+    ``device``."""
+    dev = resolve_device(device)
+    return torch.from_numpy(
+        transition_dense_np(src, dst, n, fix_dangling)).to(dev)
+
+
+def build_transition_csr(src: np.ndarray, dst: np.ndarray, n: int,
+                         device: str | torch.device | None = None
+                         ) -> CSRMatrix:
+    outdeg = np.bincount(src, minlength=n).astype(np.float32)
+    vals = 1.0 / outdeg[src]
+    return CSRMatrix.from_coo(dst, src, vals, shape=(n, n), device=device)
+
+
+def dangling_mask(src: np.ndarray, n: int) -> np.ndarray:
+    """Boolean mask of dangling nodes (no out-edges)."""
+    return np.bincount(src, minlength=n) == 0

@@ -1,0 +1,69 @@
+"""Carry a prepared layout across from numpy arrays.
+
+The state of this system is the prepared layout.  :func:`layout_from_numpy`
+takes a layout as numpy arrays — for instance the JAX engine's
+``eng.operands``, its ``_scales`` and its dangling mask, each through
+``np.asarray`` — and returns the port's operand tensors, which
+:meth:`repro_torch.pagerank.engine.PageRankEngine.from_layout` wraps in an
+engine.  numpy has no native bfloat16: a bfloat16 array (numpy's
+``ml_dtypes`` extension type, as JAX hands it out) is carried through
+float32, which is exact for bfloat16 values.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.common import resolve_device
+from repro_torch.pagerank.engine import BACKENDS
+from repro_torch.pagerank.precision import STORAGE_DTYPES, resolve_precision
+
+__all__ = ["layout_from_numpy"]
+
+# positions of the value arrays (stored in the precision's dtype) in each
+# backend's operand tuple; the other positions are int32 indices, the
+# dangling mask, or the float32 int8 scales
+_VALUE_SLOTS = {"dense": (0,), "ell": (0, 4), "fused_dense": (0,)}
+_N_OPERANDS = {"dense": (1, 2), "ell": (5, 6), "fused_dense": (2, 2)}
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    # np.asarray of a JAX array is read-only: copy before from_numpy
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def layout_from_numpy(backend: str, arrays: dict, *, precision: str,
+                      device: str | torch.device | None = None) -> dict:
+    """``arrays`` holds ``operands`` (the operand tuple of ``backend``),
+    ``scales`` (the fused tier's (1, Np) int8 scales, or ``None``) and
+    ``dang`` (the (n,) dangling mask).  Returns the same three keys as
+    tensors on ``device``, value arrays in the precision's storage dtype.
+    int8 layouts of ``dense`` and ``ell`` carry their scales as the last
+    operand, as in the JAX package."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+    precision = resolve_precision(precision)
+    dev = resolve_device(device)
+    ops = tuple(arrays["operands"])
+    lo, hi = _N_OPERANDS[backend]
+    want = hi if precision == "int8" else lo
+    if len(ops) != want:
+        raise ValueError(f"{backend} at {precision} takes {want} operands, "
+                         f"got {len(ops)}")
+    tensors = tuple(_tensor(a, dev) for a in ops)
+    storage = STORAGE_DTYPES[precision]
+    for slot in _VALUE_SLOTS[backend]:
+        if tensors[slot].dtype != storage:
+            raise ValueError(f"operand {slot} is {tensors[slot].dtype}, "
+                             f"{precision} stores {storage}")
+    scales = arrays.get("scales")
+    if backend == "fused_dense" and (scales is not None) != (
+            precision == "int8"):
+        raise ValueError("the fused tier takes scales exactly for int8")
+    return {"operands": tensors,
+            "scales": None if scales is None else _tensor(scales, dev),
+            "dang": _tensor(arrays["dang"], dev).to(torch.float32)}
