@@ -26,6 +26,11 @@ __all__ = ["pagerank_step_fused", "pad_pagerank_operands", "launches",
 _DTYPES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"),
            torch.float16: (2, "f16"), torch.int8: (3, "int8")}
 
+# rows one CTA of the kernel owns (kRowsPerBlock in the source)
+ROWS_PER_CTA = 8
+# padding multiple of pad_pagerank_operands
+PAD = 256
+
 launches = {name: 0 for _, name in _DTYPES.values()}
 
 _lib = None
@@ -47,6 +52,10 @@ def _library():
         lib.pagerank_step_fused_launch.restype = ctypes.c_int
         lib.pagerank_step_fused_rows_per_block.argtypes = []
         lib.pagerank_step_fused_rows_per_block.restype = ctypes.c_int
+        rows = lib.pagerank_step_fused_rows_per_block()
+        if rows != ROWS_PER_CTA:
+            raise RuntimeError(f"pagerank_step.cu owns {rows} rows per CTA, "
+                               f"the wrapper expects {ROWS_PER_CTA}")
         _lib = lib
     return _lib
 
@@ -59,14 +68,13 @@ def _check(cond: bool, msg: str) -> None:
 def pagerank_step_fused(Hp: torch.Tensor, xp: torch.Tensor,
                         dangp: torch.Tensor, t: torch.Tensor,
                         scales: torch.Tensor | None = None, *,
-                        d: float = 0.85, block_n: int = 256,
-                        block_m: int = 256
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
+                        d: float = 0.85) -> tuple[torch.Tensor, torch.Tensor]:
     """One fused iteration on the pre-padded layout.
 
     ``Hp``: (Np, Mp) transition matrix stored as float32, bfloat16,
-    float16 or int8, both axes multiples of the block sizes (zero
-    padding).  ``xp``: (1, Mp) float32 rank vector, ``dangp``: (1, Np)
+    float16 or int8, zero-padded so that Np is a multiple of
+    :data:`ROWS_PER_CTA` and Mp of 16 (:func:`pad_pagerank_operands` does
+    that).  ``xp``: (1, Mp) float32 rank vector, ``dangp``: (1, Np)
     float32 dangling mask (zero in the padded tail), ``t``: the float32
     teleport-plus-leak scalar (a 0-dim or 1-element tensor; it stays on
     the device).  ``scales``: optional (1, Np) float32 per-row
@@ -75,8 +83,9 @@ def pagerank_step_fused(Hp: torch.Tensor, xp: torch.Tensor,
     ``t``) and the 0-dim ``leak = sum(yp * dangp)``.
     """
     Np, Mp = Hp.shape
-    bn, bm = min(block_n, Np), min(block_m, Mp)
-    _check(Np % bn == 0 and Mp % bm == 0, "inputs must be pre-padded")
+    _check(Np % ROWS_PER_CTA == 0 and Mp % 16 == 0,
+           f"inputs must be pre-padded: Np a multiple of {ROWS_PER_CTA} and "
+           f"Mp of 16, got {(Np, Mp)} (pad with pad_pagerank_operands)")
     args = [Hp, xp, dangp, t] + ([] if scales is None else [scales])
     if all(a.device.type == "cpu" for a in args):
         return pagerank_step_fused_ref(Hp, xp, dangp, t, scales, d=d)
@@ -99,14 +108,10 @@ def pagerank_step_fused(Hp: torch.Tensor, xp: torch.Tensor,
     _check(Hp.data_ptr() % 16 == 0 and xp.data_ptr() % 16 == 0,
            "Hp and xp must be 16-byte aligned")
     lib = _library()
-    rows = lib.pagerank_step_fused_rows_per_block()
-    _check(Np % rows == 0 and Mp % 16 == 0,
-           f"Np must be a multiple of {rows} and Mp of 16 (pad with "
-           "pad_pagerank_operands)")
-
     code, name = _DTYPES[Hp.dtype]
     yp = torch.empty((1, Np), dtype=torch.float32, device=dev)
-    partials = torch.empty((Np // rows,), dtype=torch.float32, device=dev)
+    partials = torch.empty((Np // ROWS_PER_CTA,), dtype=torch.float32,
+                           device=dev)
     leak = torch.empty((), dtype=torch.float32, device=dev)
     err = lib.pagerank_step_fused_launch(
         code, Hp.data_ptr(), xp.data_ptr(), dangp.data_ptr(), t.data_ptr(),
@@ -120,26 +125,28 @@ def pagerank_step_fused(Hp: torch.Tensor, xp: torch.Tensor,
     return yp, leak
 
 
-def pad_pagerank_operands(H: torch.Tensor, dangling=None, *,
-                          block_n: int = 256, block_m: int = 256
-                          ) -> tuple[torch.Tensor, torch.Tensor, int, int]:
+def pad_pagerank_operands(H: torch.Tensor, dangling=None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """One-time layout prep for :func:`pagerank_step_fused`.
 
-    Returns ``(Hp, dangp, bn, bm)`` with zero padding up to the block grid
-    (both axes multiples of 128 at least), on ``H``'s device; do this once
-    per graph so nothing in the hot loop re-pads.
+    Returns ``(Hp, dangp)``, zero-padded on ``H``'s device: each axis to a
+    multiple of :data:`PAD` (of 128 for an axis of at most 128 entries),
+    which is the JAX package's default layout, so both hold the same
+    bytes.  Do this once per graph so nothing in the hot loop re-pads.
     """
     N, M = H.shape
-    bn = min(block_n, _mult(N, 128))
-    bm = min(block_m, _mult(M, 128))
-    Np, Mp = _mult(N, bn), _mult(M, bm)
+    Np, Mp = _padded(N), _padded(M)
     Hp = F.pad(H, (0, Mp - M, 0, Np - N)).contiguous()
     dang = (torch.zeros((N,), dtype=torch.float32, device=H.device)
             if dangling is None else
             torch.as_tensor(dangling).to(device=H.device,
                                          dtype=torch.float32))
     dangp = F.pad(dang, (0, Np - N))[None, :].contiguous()
-    return Hp, dangp, bn, bm
+    return Hp, dangp
+
+
+def _padded(x: int) -> int:
+    return _mult(x, min(PAD, _mult(x, 128)))
 
 
 def _mult(x: int, m: int) -> int:

@@ -71,13 +71,17 @@ def run(argv=None):
                                device=device)
     results["engine_dense"], pr_dense = _time_engine(eng_dense, iters)
 
-    tiers = [("ell", "f32"), ("fused_dense", args.precision)]
-    for backend, precision in tiers:
+    prs = {}
+    for backend, precision in (("ell", "f32"),
+                               ("fused_dense", args.precision)):
         eng = PageRankEngine(src, dst, n, d=d, backend=backend,
                              precision=precision, device=device)
-        results[f"engine_{eng.layout}"], pr = _time_engine(eng, iters)
-        err = float(torch.max(torch.abs(pr - pr_dense)))
+        results[f"engine_{eng.layout}"], prs[backend] = _time_engine(eng,
+                                                                     iters)
+        err = float(torch.max(torch.abs(prs[backend] - pr_dense)))
         print(f"  engine[{eng.layout}] vs dense: max|diff|={err:.2e}")
+
+    torch.testing.assert_close(pr_dense, prs["ell"], rtol=1e-3, atol=1e-7)
 
     idx, scores = top_k_proteins(pr_dense, k=args.top_k)
     print(f"\ntop-{args.top_k} proteins: "

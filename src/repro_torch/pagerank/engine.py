@@ -159,25 +159,21 @@ def _fused_start(x0, dangp, *, n: int, Mp: int, d: float):
     return xp0, d * torch.sum(xp0 * dangp) / n + (1.0 - d) / n
 
 
-def _run_fixed_fused(Hp, dangp, scales, *, n: int, n_iters: int, d: float,
-                     block: tuple[int, int]):
+def _run_fixed_fused(Hp, dangp, scales, *, n: int, n_iters: int, d: float):
     xp, t = _fused_start(None, dangp, n=n, Mp=Hp.shape[1], d=d)
     for _ in range(n_iters):
-        xp, leak = pagerank_step_fused(Hp, xp, dangp, t, scales, d=d,
-                                       block_n=block[0], block_m=block[1])
+        xp, leak = pagerank_step_fused(Hp, xp, dangp, t, scales, d=d)
         t = d * leak / n + (1.0 - d) / n
     return xp[0, :n]
 
 
 def _run_tol_fused(Hp, dangp, tol, x0, scales, *, n: int, max_iters: int,
-                   d: float, block: tuple[int, int], watchdog: bool,
-                   trace: bool):
+                   d: float, watchdog: bool, trace: bool):
     state0 = _fused_start(x0, dangp, n=n, Mp=Hp.shape[1], d=d)
 
     def step(carry):
         xp, t = carry
-        yp, leak = pagerank_step_fused(Hp, xp, dangp, t, scales, d=d,
-                                       block_n=block[0], block_m=block[1])
+        yp, leak = pagerank_step_fused(Hp, xp, dangp, t, scales, d=d)
         res = torch.sum(torch.abs(yp[0, :n] - xp[0, :n]))
         return (yp, d * leak / n + (1.0 - d) / n), res
 
@@ -200,7 +196,6 @@ class PageRankEngine:
 
     def __init__(self, src: np.ndarray, dst: np.ndarray, n: int, *,
                  d: float = 0.85, backend: str = "auto",
-                 block_n: int = 256, block_m: int = 256,
                  ell_k: int | None = None,
                  device: str | torch.device | None = None, metrics=None,
                  precision: str = "auto"):
@@ -213,14 +208,13 @@ class PageRankEngine:
         self._keys = delta_mod.edge_keys(src, dst, n)
         if backend == "auto":
             backend = select_backend(n, self.density, device=dev)
-        self._init_common(n, d, backend, precision, dev, metrics,
-                          (block_n, block_m))
+        self._init_common(n, d, backend, precision, dev, metrics)
         self._ell_k = ell_k
         with self.metrics.span("prepare", backend=self.backend):
             self._prepare_layout(src, dst)
 
-    def _init_common(self, n, d, backend, precision, device, metrics,
-                     block) -> None:
+    def _init_common(self, n, d, backend, precision, device,
+                     metrics) -> None:
         if backend not in BACKENDS:
             raise ValueError(
                 f"backend {backend!r} not in {BACKENDS + ('auto',)}")
@@ -230,7 +224,6 @@ class PageRankEngine:
         self.backend = backend
         self.precision = resolve_precision(precision)
         self.storage_dtype = STORAGE_DTYPES[self.precision]
-        self._block = tuple(block)
         self._scales = None
         self.layout = backend
         # the last run_tol's SolveInfo and the warn-once latch for
@@ -243,7 +236,6 @@ class PageRankEngine:
     @classmethod
     def from_layout(cls, backend: str, layout: dict, n: int, *,
                     d: float = 0.85, precision: str = "f32",
-                    block_n: int = 256, block_m: int = 256,
                     device: str | torch.device | None = None,
                     metrics=None) -> "PageRankEngine":
         """An engine around prepared operands: ``layout`` is the dict of
@@ -251,8 +243,7 @@ class PageRankEngine:
         (``operands``, ``scales``, ``dang``)."""
         eng = cls.__new__(cls)
         dev = resolve_device(device)
-        eng._init_common(n, d, backend, precision, dev, metrics,
-                         (block_n, block_m))
+        eng._init_common(n, d, backend, precision, dev, metrics)
         eng._operands = tuple(o.to(dev) for o in layout["operands"])
         eng._dang = layout["dang"].to(dev)
         if layout.get("scales") is not None:
@@ -295,9 +286,7 @@ class PageRankEngine:
         else:                                   # fused_dense
             H = torch.from_numpy(
                 tr.transition_dense_np(src, dst, n, fix_dangling=False))
-            Hp, dangp, bn, bm = pad_pagerank_operands(
-                H, torch.from_numpy(dang), block_n=self._block[0],
-                block_m=self._block[1])
+            Hp, dangp = pad_pagerank_operands(H, torch.from_numpy(dang))
             if self.precision == "int8":
                 Hp_np = Hp.numpy()
                 scales = rowmax_scales(np.abs(Hp_np).max(axis=1,
@@ -309,7 +298,6 @@ class PageRankEngine:
             else:
                 Hp = Hp.to(self.storage_dtype)
             self._operands = (Hp.to(self.device), dangp.to(self.device))
-            self._block = (bn, bm)
         if self.precision != "f32":
             self.layout = f"{self.layout}[{self.precision}]"
         self._record_layout_bytes()
@@ -351,8 +339,7 @@ class PageRankEngine:
         if self.backend == "fused_dense":
             Hp, dangp = self._operands
             return _run_fixed_fused(Hp, dangp, self._scales, n=self.n,
-                                    n_iters=n_iters, d=self.d,
-                                    block=self._block)
+                                    n_iters=n_iters, d=self.d)
         if self.backend == "dense" and self.precision == "f32":
             return pagerank_dense_fixed(self._operands[0], n_iters=n_iters,
                                         d=self.d)
@@ -386,8 +373,7 @@ class PageRankEngine:
                 Hp, dangp = self._operands
                 out = _run_tol_fused(
                     Hp, dangp, tol_f32, x0, self._scales, n=self.n,
-                    max_iters=max_iters, d=self.d, block=self._block,
-                    watchdog=watchdog, trace=trace)
+                    max_iters=max_iters, d=self.d, watchdog=watchdog, trace=trace)
             elif self.backend == "dense" and self.precision == "f32":
                 out = pagerank_dense(self._operands[0], d=self.d,
                                      tol=tol_f32, max_iters=max_iters,

@@ -1,9 +1,10 @@
 """PyTorch port on the card: the hand-written fused-step kernel against
 its plain version, the wrapper's checks on CUDA tensors, and the engine's
 fused tier.  Every test here needs a CUDA card and ``nvcc``; without a
-card each one skips with the reason.  On the card:
+card each one skips with the reason (they carry the ``cuda`` marker).
+On the card:
 
-    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import numpy as np
 import pytest
@@ -15,7 +16,12 @@ from repro_torch.kernels.ref import pagerank_step_fused_ref
 from repro_torch.obs.registry import NullRegistry
 from repro_torch.pagerank import PageRankEngine
 
+pytestmark = pytest.mark.cuda
+
 TOL32 = dict(rtol=1e-5, atol=5e-5)
+# the same comparison scaled to PageRank's values: every yp is at least t
+TIGHT = dict(rtol=1e-5, atol=1e-9)
+
 STORE = {"f32": torch.float32, "bf16": torch.bfloat16,
          "f16": torch.float16, "int8": torch.int8}
 
@@ -56,6 +62,8 @@ def test_kernel_matches_plain(cuda, Np, Mp, precision):
     yr, lr = pagerank_step_fused_ref(Hp, xp, dangp, t, scales)
     torch.testing.assert_close(yp, yr, **TOL32)
     torch.testing.assert_close(leak, lr, **TOL32)
+    torch.testing.assert_close(yp, yr, **TIGHT)
+    torch.testing.assert_close(leak, lr, **TIGHT)
     again = k1.pagerank_step_fused(Hp, xp, dangp, t, scales)
     assert torch.equal(again[0], yp) and torch.equal(again[1], leak)
 
@@ -77,10 +85,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 def test_engine_fused_tier_on_card(cuda):
     n = 1200
     src, dst = protein_network(n, seed=3)
-    dense = PageRankEngine(src, dst, n, backend="dense", device=cuda,
-                           metrics=NullRegistry())
-    ref = dense.run(100)
     for precision in STORE:
+        # the dense tier at the same precision: the same H and leak
+        dense = PageRankEngine(src, dst, n, backend="dense",
+                               precision=precision, device=cuda,
+                               metrics=NullRegistry())
+        ref = dense.run(100)
         eng = PageRankEngine(src, dst, n, backend="fused_dense",
                              precision=precision, device=cuda,
                              metrics=NullRegistry())
@@ -92,8 +102,8 @@ def test_engine_fused_tier_on_card(cuda):
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         assert k1.launches[precision] == before + 100
+        torch.testing.assert_close(pr, ref, rtol=1e-5, atol=1e-7)
         if precision == "f32":
-            torch.testing.assert_close(pr, ref, rtol=1e-5, atol=1e-7)
             assert torch.equal(eng.run(100), pr)
             r = eng.run_tol(tol=1e-6)
             d = dense.run_tol(tol=1e-6)

@@ -73,7 +73,8 @@ def test_run_matches_jax(net, backend, precision):
 @pytest.mark.parametrize("precision", PRECISIONS)
 def test_fused_run_matches_pallas(net, precision):
     j, t = _pair(net, "fused_dense", precision)
-    assert t._block == j._block
+    assert [tuple(o.shape) for o in t.operands] == [
+        tuple(o.shape) for o in j.operands]
     pr = t.run(15)
     assert pr.shape == (net[0],) and pr.dtype == torch.float32
     np.testing.assert_allclose(_np(pr), _np(j.run(15)), **TOL["fused_dense"])
@@ -349,6 +350,17 @@ def test_launcher_runs_on_cpu(capsys):
     assert "fused_dense[bf16]" in out and "top-10 proteins" in out
     assert set(res) == {"engine_dense", "engine_fused_dense[bf16]"} | {
         k for k in res if k.startswith("engine_ell")}
+
+
+def test_launcher_fails_when_ell_disagrees(monkeypatch):
+    """As in the JAX launcher, a wrong ell tier fails the run."""
+    from repro_torch.launch import pagerank_run
+    matvec = tengine._matvec
+    monkeypatch.setattr(tengine, "_matvec",
+                        lambda b, ops, x: 1.1 * matvec(b, ops, x))
+    with pytest.raises(AssertionError):
+        pagerank_run.run(["--nodes", "150", "--iters", "10",
+                          "--device", "cpu"])
 
 
 def test_import_hygiene_subprocess():

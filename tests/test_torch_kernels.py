@@ -95,13 +95,13 @@ def test_pad_pagerank_operands_matches_jax(N, M):
     rng = np.random.default_rng(N * M)
     H = rng.random((N, M), dtype=np.float32)
     dang = (rng.random(N) < 0.1).astype(np.float32)
-    jHp, jd, jbn, jbm = jps.pad_pagerank_operands(jnp.asarray(H), dang)
-    tHp, td, tbn, tbm = tps.pad_pagerank_operands(torch.from_numpy(H), dang)
-    assert (jbn, jbm) == (tbn, tbm)
+    jHp, jd, _, _ = jps.pad_pagerank_operands(jnp.asarray(H), dang)
+    tHp, td = tps.pad_pagerank_operands(torch.from_numpy(H), dang)
+    assert tHp.shape == jHp.shape
     assert np.array_equal(tHp.numpy(), np.asarray(jHp))
     assert np.array_equal(td.numpy(), np.asarray(jd))
     assert tHp.is_contiguous() and td.shape == (1, tHp.shape[0])
-    _, td0, _, _ = tps.pad_pagerank_operands(torch.from_numpy(H))
+    _, td0 = tps.pad_pagerank_operands(torch.from_numpy(H))
     assert not td0.any()
 
 
@@ -120,8 +120,7 @@ def test_wrapper_rejects_unpadded_layout():
     Hp = torch.zeros((256, 200))
     with pytest.raises(ValueError, match="pre-padded"):
         tps.pagerank_step_fused(Hp, torch.zeros((1, 200)),
-                                torch.zeros((1, 256)), torch.tensor(0.0),
-                                block_m=128)
+                                torch.zeros((1, 256)), torch.tensor(0.0))
 
 
 def test_reset_launches():
