@@ -13,7 +13,9 @@ result line):
 1. setup: the card's name and power limit, the versions, TF32 off, the
    kernel build (timed);
 2. every kernel against its plain PyTorch version on the card, for every
-   storage dtype, at small shapes and at the main path's shape;
+   storage dtype, at small shapes (unpadded ones included) and at the main
+   paths' shapes, and two calls bit-identical: K1, the fused step, and K2,
+   the streaming batched matvec (at B = 1, 8 and 64 on 5120 x 5120);
 3. the main path at the paper's full size: PageRank over the 5000-protein
    network, 100 iterations, d = 0.85, through ``PageRankEngine`` on the
    ``dense``, ``ell`` and ``fused_dense`` tiers (every precision on the
@@ -21,9 +23,17 @@ result line):
    ``run_tol``, ``top_k_proteins`` and the launcher; the kernel launch
    counts are zeroed just before and read just after, and ``run`` is held
    to making no host sync;
+3b. the serving path on the same network: ``engine.ppr`` of 8 seed sets
+   on ``fused_dense`` at every precision (held to the ``dense`` tier), then
+   a ``PageRankQueryEngine`` with a ``ResultCache`` and a 64-hub
+   ``LandmarkIndex`` serving 64 Zipf(1.1) queries (every landmark answer
+   held to an exact 200-iteration solve, every cache hit to its miss); K2's
+   launch counts are zeroed before and read after each step and checked
+   exactly;
 4. times on the card (CUDA events, medians) beside each kernel's bound:
    the kernel, its plain version and the library call each with the L2
-   cache flushed before the call, and the kernel back to back as well.
+   cache flushed before the call, and the kernel back to back as well;
+   the serve flush's p50 / p95 and the landmark build time.
 
 The last lines are a JSON object ``{"kernels": [...]}``, the card's name
 and power limit as ``nvidia-smi`` prints them, and the result line
@@ -58,6 +68,17 @@ TOL_TIER = dict(rtol=1e-5, atol=1e-7)
 PRECISIONS = ("f32", "bf16", "f16", "int8")
 K1_SOURCE = "src/repro_torch/kernels/csrc/pagerank_step.cu"
 K1_REPLACES = "src/repro/kernels/pagerank_step.py:86"
+K2_SOURCE = "src/repro_torch/kernels/csrc/streaming_matvec.cu"
+K2_REPLACES = "src/repro/kernels/streaming_matvec.py:29"
+# the serve phase: 8 queries per flush, a 64-hub landmark index, and the
+# query mix of benchmarks/serve_bench.py (Zipf(1.1) over a pool of seed
+# sets, here 32 sets of 1 to 5 proteins, 64 queries)
+SERVE_BATCH, N_HUBS, POOL, N_QUERIES, ZIPF_S = 8, 64, 32, 64, 1.1
+LM_TOL, LM_MAX_PUSHES = 1e-7, 256
+# |column sum - 1| of a PPR matrix: 1e-3 for f32; a reduced-precision H
+# does not keep the mass at 1, so those tiers get the JAX suite's slack
+# (tests/test_precision.py SUM_TOL) and are held to the dense tier's sums
+SUM_TOL = {"f32": 1e-3, "bf16": 0.06, "f16": 0.01, "int8": 0.2}
 
 
 def nvidia_smi() -> str:
@@ -188,6 +209,37 @@ def random_case(np, Np, Mp, precision, seed):
     return H, x, dang, np.float32(t), scales, n
 
 
+def k2_case(np, N, M, B, precision, seed):
+    """Seeded W (N, M) at PageRank's scale (entries in [0, 2/M); int8 as
+    integers, their row scales being the caller's) and X (B, M) whose rows
+    are distributions, as the PPR iterates are."""
+    rng = np.random.default_rng(seed)
+    W = rng.random((N, M), dtype=np.float32) * (2.0 / M)
+    if precision == "int8":
+        W = np.rint(W * (127.0 * M / 2.0)).astype(np.int8)
+    X = rng.random((B, M), dtype=np.float32)
+    X /= X.sum(axis=1, keepdims=True)
+    return W, X
+
+
+def zipf_queries(np, n, seed):
+    """The serve phase's traffic: a pool of POOL seed sets of 1 to 5
+    proteins and N_QUERIES picks from it with Zipf(ZIPF_S) weights."""
+    rng = np.random.default_rng(seed)
+    pool = [np.sort(rng.choice(n, size=int(rng.integers(1, 6)),
+                               replace=False)) for _ in range(POOL)]
+    w = 1.0 / np.arange(1, POOL + 1, dtype=np.float64) ** ZIPF_S
+    picks = rng.choice(POOL, size=N_QUERIES, p=w / w.sum())
+    return pool, picks
+
+
+def issued_sweeps(sweeps, max_pushes, chunk):
+    """Sweeps the port's chunked tolerance loop issues for a push that
+    converged after ``sweeps``: whole chunks of ``chunk`` (the masked
+    sweeps after the exit change nothing), never past ``max_pushes``."""
+    return min(max_pushes, -(-sweeps // chunk) * chunk)
+
+
 def host_reference(np, src, dst, n, n_iters, d):
     """Independent float64 power iteration on the host: dense
     column-stochastic H with uniform dangling columns."""
@@ -235,11 +287,16 @@ def main() -> int:
     from repro_torch.graph.generators import protein_network
     from repro_torch.kernels import _build
     from repro_torch.kernels import pagerank_step as k1
-    from repro_torch.kernels.ref import pagerank_step_fused_ref
+    from repro_torch.kernels import streaming_matvec as k2
+    from repro_torch.kernels.ref import (pagerank_step_fused_ref,
+                                         streaming_matvec_ref)
     from repro_torch.launch import pagerank_run
-    from repro_torch.obs.registry import NullRegistry
-    from repro_torch.pagerank import PageRankEngine
+    from repro_torch.obs.registry import MetricsRegistry, NullRegistry
+    from repro_torch.obs.trace import CHUNK
+    from repro_torch.pagerank import LandmarkIndex, PageRankEngine
+    from repro_torch.pagerank.fidelity import topk_overlap as overlap
     from repro_torch.pagerank.sparse import top_k_proteins
+    from repro_torch.serve import PageRankQueryEngine, ResultCache
 
     cfg = full()
     check((cfg.n_nodes, cfg.n_iters, cfg.damping, cfg.seed)
@@ -300,6 +357,32 @@ def main() -> int:
             .astype(np.float32)).to(dev)
         compare(p, Hp, xp, dangp, torch.tensor(0.15 / N_NODES, device=dev),
                 eng._scales, N_NODES, f"{p} protein {tuple(Hp.shape)}")
+
+    print("K2 vs plain version on the card (rtol 1e-5, atol 5e-5, and "
+          "rtol 1e-5, atol 1e-9; X rows are distributions):")
+    k2_err = {}
+    for p in PRECISIONS:
+        for N, M, B in ((300, 130, 3), (256, 256, 1), (640, 384, 100),
+                        (5120, 5120, 1), (5120, 5120, 8),
+                        (5120, 5120, 64)):
+            W, X = k2_case(np, N, M, B, p, seed=N + M + B)
+            Wt = torch.from_numpy(W).to(dev)
+            if p != "int8":
+                Wt = Wt.to(engines[p].storage_dtype)
+            Xt = torch.from_numpy(X).to(dev)
+            Y = k2.streaming_matvec(Wt, Xt)
+            torch.cuda.synchronize()
+            ref = streaming_matvec_ref(Wt, Xt)
+            what = f"K2 {p} {N}x{M} B={B}"
+            e = allclose(torch, Y, ref, **TOL32, what=what)
+            allclose(torch, Y, ref, **TIGHT, what=what)
+            check(Y.shape == (B, N), f"{what}: shape {tuple(Y.shape)}")
+            check(bool(torch.equal(k2.streaming_matvec(Wt, Xt), Y)),
+                  f"{what}: two calls are not bit-identical")
+            rel = float(((Y - ref).abs() / ref.abs()).max())
+            key = (p, B if N == 5120 else 0)
+            k2_err[key] = max(k2_err.get(key, 0.0), e)
+            print(f"  {what}: max|diff| {e:.3e} (relative {rel:.3e})")
 
     # ---------------------------------------------------------------- 3 --
     print(f"main path: protein_network({N_NODES}, seed={SEED}), "
@@ -389,6 +472,150 @@ def main() -> int:
     print(f"  top-100 overlap with f32: {overlaps}")
     print(f"  run_tol(1e-6) iterations: {iters}")
 
+    # --------------------------------------------------------------- 3b --
+    print(f"serve path: protein_network({N_NODES}, seed={SEED}), "
+          f"d={DAMPING}; K2 launch counts zeroed before and read after "
+          "each step")
+    serve_launches = {p: 0 for p in PRECISIONS}
+
+    def counted(fn):
+        k2.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(k2.launches)
+        for p, c in got.items():
+            serve_launches[p] += c
+        return out, got
+
+    t_serve = time.perf_counter()
+    pool, picks = zipf_queries(np, N_NODES, SEED)
+    sets8 = [pool[j] for j in range(SERVE_BATCH)]
+    ppr = {}
+    for p in PRECISIONS:
+        ppr[p], got = counted(lambda p=p: engines[p].ppr(sets8, N_ITERS))
+        check(got == {q: (N_ITERS if q == p else 0) for q in PRECISIONS},
+              f"ppr({N_ITERS}) on fused_dense[{p}] launched K2 {got}")
+    ppr_err, ppr_sum = {}, {}
+    for p in PRECISIONS:
+        dense_p = PageRankEngine(src, dst, N_NODES, d=DAMPING,
+                                 backend="dense", precision=p, device=dev,
+                                 metrics=NullRegistry())
+        ref_p = dense_p.ppr(sets8, N_ITERS)
+        X = ppr[p]
+        check(X.shape == (N_NODES, SERVE_BATCH)
+              and bool(torch.isfinite(X).all()), f"ppr {p}: bad output")
+        ppr_err[p] = allclose(torch, X, ref_p, **TOL_TIER,
+                              what=f"ppr fused_dense[{p}] vs dense[{p}]")
+        sums, ref_sums = X.sum(dim=0), ref_p.sum(dim=0)
+        ppr_sum[p] = float((sums - 1.0).abs().max())
+        check(ppr_sum[p] <= SUM_TOL[p],
+              f"ppr {p}: |column sum - 1| {ppr_sum[p]:.3e} > {SUM_TOL[p]}")
+        allclose(torch, sums, ref_sums, rtol=0, atol=1e-5,
+                 what=f"ppr {p} column sums vs dense[{p}]")
+    print(f"  ppr(8 seed sets, {N_ITERS}) fused_dense vs dense at the same "
+          "precision, max|diff|: "
+          + ", ".join(f"{p} {e:.3e}" for p, e in ppr_err.items()))
+    print("  max |column sum - 1|: "
+          + ", ".join(f"{p} {e:.3e}" for p, e in ppr_sum.items()))
+
+    fused_serve = engines["f32"]
+    reg = MetricsRegistry()
+    answers = []
+
+    class CountedIndex(LandmarkIndex):
+        """Checks K2's launches of every answer against its sweeps."""
+
+        def answer(self, seed_sets, tol=None, max_pushes=None):
+            before = k2.launches["f32"]
+            check(before == sum(a["launches"] for a in answers),
+                  "K2 launched outside the landmark answers")
+            X, info = super().answer(seed_sets, tol, max_pushes)
+            torch.cuda.synchronize()
+            got = k2.launches["f32"] - before
+            want = 1 + issued_sweeps(info["sweeps"], self.max_pushes,
+                                     CHUNK)
+            if info["fallbacks"]:
+                want += self.n_iters
+            check(got == want, f"answer of {len(seed_sets)} queries, "
+                  f"{info['sweeps']} sweeps: K2 launched {got}, want {want}")
+            answers.append(dict(info, launches=got, q=len(seed_sets)))
+            return X, info
+
+    lm = CountedIndex(fused_serve, n_hubs=N_HUBS, tol=LM_TOL,
+                      max_pushes=LM_MAX_PUSHES, n_iters=N_ITERS,
+                      metrics=reg)
+    t0 = time.perf_counter()
+    _, got = counted(lambda: lm.ensure(0))
+    build_ms = (time.perf_counter() - t0) * 1e3
+    check(got["f32"] == N_ITERS and lm.built,
+          f"landmark build launched K2 {got}")
+    cache = ResultCache(1024)
+    qe = PageRankQueryEngine(fused_serve, n_iters=N_ITERS,
+                             max_batch=SERVE_BATCH, metrics=reg,
+                             cache=cache, landmarks=lm)
+
+    def serve():
+        queries = [qe.submit(i, pool[j], top_k=10)
+                   for i, j in enumerate(picks)]
+        qe.flush()
+        return queries
+
+    served, got = counted(serve)
+    check(got["f32"] == sum(a["launches"] for a in answers)
+          and sum(got.values()) == got["f32"],
+          f"serving launched K2 {got}, the answers "
+          f"{[a['launches'] for a in answers]}")
+    serve_s = time.perf_counter() - t_serve
+    k1_during_serve = sum(k1.launches.values()) - sum(main_launches.values())
+    # every landmark answer (each miss is cached whole) against an exact
+    # 200-iteration solve, outside the counted run
+    keys = list(cache._entries)
+    exact = fused_serve.ppr([list(k[1]) for k in keys], 200).cpu().numpy()
+    lm_err, lm_ov = 0.0, 1.0
+    for j, key in enumerate(keys):
+        ranks = cache._entries[key].ranks
+        lm_err = max(lm_err, float(np.abs(ranks - exact[:, j]).max()))
+        lm_ov = min(lm_ov, overlap(ranks, exact[:, j], k=50))
+    check(lm_err <= 1e-5, f"landmark answers vs exact: {lm_err:.3e}")
+    check(lm_ov >= 0.99, f"landmark answers top-50 overlap {lm_ov}")
+    first = {}
+    for q in served:
+        check(q.result is not None and np.all(np.isfinite(q.result[1])),
+              f"query {q.uid} was not served")
+        key = ResultCache.key(q.seeds, "f32")
+        if q.cache_outcome == "miss":
+            first.setdefault(key, q.result)
+        else:
+            check(q.cache_outcome == "hit" and key in first
+                  and np.array_equal(q.result[0], first[key][0])
+                  and np.array_equal(q.result[1], first[key][1]),
+                  f"query {q.uid}: the cache hit differs from its miss")
+    hits = sum(q.cache_outcome == "hit" for q in served)
+    batch_ms = reg.histogram("serve.batch_ms")
+    serve_stats = {
+        "flush_p50_ms": batch_ms.quantile(0.50),
+        "flush_p95_ms": batch_ms.quantile(0.95),
+        "flushes": batch_ms.count, "landmark_build_ms": build_ms,
+        "queries": len(served), "cache_hits": hits,
+        "answers": len(answers),
+        "sweeps": [a["sweeps"] for a in answers],
+        "answer_q": [a["q"] for a in answers],
+        "fallbacks": sum(a["fallbacks"] for a in answers),
+        "k2_launches": serve_launches, "serve_phase_s": serve_s}
+    check(k1_during_serve == 0, "the serve path launched K1")
+    check(serve_launches["f32"] > 0, "the serve path launched no K2")
+    print(f"  landmark build ({N_HUBS} hubs, {N_ITERS} iterations): "
+          f"{build_ms:.3f} ms on {card}, K2 launches {N_ITERS}")
+    print(f"  served {len(served)} queries in {batch_ms.count} flushes: "
+          f"{hits} cache hits, {len(answers)} landmark answers of "
+          f"{serve_stats['answer_q']} queries, sweeps "
+          f"{serve_stats['sweeps']}, fallbacks {serve_stats['fallbacks']}")
+    print(f"  landmark answers vs exact ppr(200): max|diff| {lm_err:.3e}, "
+          f"min top-50 overlap {lm_ov}; every cache hit equals its miss")
+    print(f"  serve.batch_ms p50 {serve_stats['flush_p50_ms']:.3f} ms, p95 "
+          f"{serve_stats['flush_p95_ms']:.3f} ms on {card}; K2 launches on "
+          f"the serve path {serve_launches}")
+
     # ---------------------------------------------------------------- 4 --
     print(f"times on {card} (CUDA events, medians of CUDA-graph replays; "
           "'flushed': one call after a 256 MiB write evicts the L2, "
@@ -442,6 +669,53 @@ def main() -> int:
               f"{plain_ms * 1e3:.2f} us flushed"
               + ("" if library_ms is None
                  else f"; torch.addmv {library_ms * 1e3:.2f} us flushed"))
+    rng = np.random.default_rng(SEED + 1)
+    for p in PRECISIONS:
+        W = engines[p].operands[0]
+        Np, Mp = W.shape
+        for B in (SERVE_BATCH, N_HUBS):
+            Xh = np.zeros((B, Mp), np.float32)
+            Xh[:, :N_NODES] = rng.dirichlet(np.ones(N_NODES), size=B)
+            X = torch.from_numpy(Xh).to(dev)
+
+            def kernel():
+                k2.streaming_matvec(W, X)
+
+            def plain():
+                streaming_matvec_ref(W, X)
+
+            ms = cuda_ms_cold(torch, kernel, flush)
+            warm_ms = cuda_ms(torch, kernel)
+            call_ms = eager_ms(torch, kernel)
+            plain_ms = cuda_ms_cold(torch, plain, flush)
+            library_ms = None
+            if p == "f32":
+                library_ms = cuda_ms_cold(torch, lambda: X @ W.T, flush)
+            nbytes = W.numel() * W.element_size() + 4 * B * (Mp + Np)
+            ops = 2 * B * Np * Mp
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / F32_OPS_PER_S * 1e3
+            bound = max(bytes_ms, ops_ms)
+            by = "bytes" if bytes_ms >= ops_ms else "operations"
+            rows.append({
+                "name": f"streaming_matvec[{p},B={B}]", "route": "cuda",
+                "source": K2_SOURCE, "replaces": K2_REPLACES,
+                "launches": serve_launches[p],
+                "max_abs_err": k2_err[(p, B)], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": library_ms, "ms_warm_l2": warm_ms,
+                "ms_eager_call": call_ms, "shape": [Np, Mp], "batch": B,
+                "bytes": nbytes, "operations": ops})
+            print(f"  K2 {p} B={B}: {ms * 1e3:.2f} us flushed, "
+                  f"{warm_ms * 1e3:.2f} us warm, {call_ms * 1e3:.2f} us per "
+                  f"eager call; bound {bound * 1e3:.2f} us by {by} "
+                  f"({nbytes} bytes at {HBM_BYTES_PER_S / 1e12} TB/s, "
+                  f"{ops} float32 operations at "
+                  f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s); plain "
+                  f"{plain_ms * 1e3:.2f} us flushed"
+                  + ("" if library_ms is None else
+                     f"; X @ W.T (TF32 off) {library_ms * 1e3:.2f} us "
+                     "flushed"))
     del flush
 
     tiers = {"dense": dense, "ell": ell, "fused_dense": fused}
@@ -474,7 +748,7 @@ def main() -> int:
 
     print(json.dumps({"run_ms": run_ms, "run_tol_ms": tol_ms,
                       "run_tol_iters": iters, "build_s": built["seconds"],
-                      "main_path_s": main_s}))
+                      "main_path_s": main_s, "serve": serve_stats}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

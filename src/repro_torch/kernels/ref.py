@@ -12,7 +12,13 @@ import torch
 
 from repro_torch.kernels.common import upcast_f32
 
-__all__ = ["pagerank_step_ref", "pagerank_step_fused_ref"]
+__all__ = ["streaming_matvec_ref", "pagerank_step_ref",
+           "pagerank_step_fused_ref"]
+
+
+def streaming_matvec_ref(W: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Y = X @ W^T, f32 accumulation."""
+    return upcast_f32(X) @ upcast_f32(W).T
 
 
 def pagerank_step_ref(H: torch.Tensor, pr: torch.Tensor, t,

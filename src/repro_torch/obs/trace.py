@@ -106,7 +106,8 @@ def instrumented_tol_loop(step, state0, *, tol, max_iters: int,
     arithmetic; ``state`` is a tensor or a tuple of tensors (the rank
     vector, the fused tier's ``(xp, t)`` carry), all on one device.
     ``res0`` seeds the loop residual (default ``inf``: always take the
-    first step).  ``tol`` is a Python float or a 0-dim tensor.
+    first step); a tensor ``res0`` stays on the device, so seeding the loop
+    costs no host sync.  ``tol`` is a Python float or a 0-dim tensor.
 
     Returns ``(state, iters, residual, grow, ring)`` as device tensors;
     ``ring`` is ``None`` with ``trace=False``.
@@ -116,8 +117,11 @@ def instrumented_tol_loop(step, state0, *, tol, max_iters: int,
 
     leaf = state0[0] if isinstance(state0, tuple) else state0
     dev = leaf.device
-    res = torch.full((), float("inf") if res0 is None else float(res0),
-                     dtype=dtype, device=dev)
+    if isinstance(res0, torch.Tensor):
+        res = res0.to(device=dev, dtype=dtype).reshape(())
+    else:
+        res = torch.full((), float("inf") if res0 is None else float(res0),
+                         dtype=dtype, device=dev)
     if isinstance(tol, torch.Tensor):
         tol = tol.to(dev)
     i = torch.zeros((), dtype=torch.int32, device=dev)

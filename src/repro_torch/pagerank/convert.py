@@ -1,13 +1,16 @@
 """Carry a prepared layout across from numpy arrays.
 
-The state of this system is the prepared layout.  :func:`layout_from_numpy`
-takes a layout as numpy arrays — for instance the JAX engine's
-``eng.operands``, its ``_scales`` and its dangling mask, each through
-``np.asarray`` — and returns the port's operand tensors, which
-:meth:`repro_torch.pagerank.engine.PageRankEngine.from_layout` wraps in an
-engine.  numpy has no native bfloat16: a bfloat16 array (numpy's
-``ml_dtypes`` extension type, as JAX hands it out) is carried through
-float32, which is exact for bfloat16 values.
+The state of this system is the prepared layout and the host edge
+bookkeeping beside it.  :func:`layout_from_numpy` takes a layout as numpy
+arrays — for instance the JAX engine's ``eng.operands``, its ``_scales``
+and its dangling mask, each through ``np.asarray``, and optionally its
+sorted edge keys ``_keys`` and degree vectors ``_outdeg`` / ``_indeg`` —
+and returns the port's operand tensors (the bookkeeping stays numpy),
+which :meth:`repro_torch.pagerank.engine.PageRankEngine.from_layout` wraps
+in an engine; a :class:`~repro_torch.pagerank.landmarks.LandmarkIndex`
+needs the bookkeeping.  numpy has no native bfloat16: a bfloat16 array
+(numpy's ``ml_dtypes`` extension type, as JAX hands it out) is carried
+through float32, which is exact for bfloat16 values.
 """
 from __future__ import annotations
 
@@ -40,10 +43,12 @@ def layout_from_numpy(backend: str, arrays: dict, *, precision: str,
                       device: str | torch.device | None = None) -> dict:
     """``arrays`` holds ``operands`` (the operand tuple of ``backend``),
     ``scales`` (the fused tier's (1, Np) int8 scales, or ``None``) and
-    ``dang`` (the (n,) dangling mask).  Returns the same three keys as
-    tensors on ``device``, value arrays in the precision's storage dtype.
-    int8 layouts of ``dense`` and ``ell`` carry their scales as the last
-    operand, as in the JAX package."""
+    ``dang`` (the (n,) dangling mask), and optionally the host edge
+    bookkeeping ``keys`` (sorted src*n+dst), ``outdeg`` and ``indeg``.
+    Returns the first three as tensors on ``device``, value arrays in the
+    precision's storage dtype, and the bookkeeping as int64 numpy arrays
+    (``None`` where not given).  int8 layouts of ``dense`` and ``ell``
+    carry their scales as the last operand, as in the JAX package."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     precision = resolve_precision(precision)
@@ -64,6 +69,9 @@ def layout_from_numpy(backend: str, arrays: dict, *, precision: str,
     if backend == "fused_dense" and (scales is not None) != (
             precision == "int8"):
         raise ValueError("the fused tier takes scales exactly for int8")
+    book = {k: None if arrays.get(k) is None
+            else np.array(arrays[k], np.int64, copy=True)
+            for k in ("keys", "outdeg", "indeg")}
     return {"operands": tensors,
             "scales": None if scales is None else _tensor(scales, dev),
-            "dang": _tensor(arrays["dang"], dev).to(torch.float32)}
+            "dang": _tensor(arrays["dang"], dev).to(torch.float32), **book}

@@ -11,8 +11,10 @@ single-device tiers:
 * ``"fused_dense"`` — the pre-padded dense layout through the hand-written
   fused kernel (:func:`repro_torch.kernels.pagerank_step
   .pagerank_step_fused`), which emits the dangling leak of the new rank
-  vector from its own epilogue.  It stands for the JAX ``pallas_dense``
-  tier.
+  vector from its own epilogue; its batched personalized PageRank runs on
+  the hand-written streaming kernel
+  (:func:`repro_torch.kernels.streaming_matvec.streaming_matvec`).  It
+  stands for the JAX ``pallas_dense`` tier.
 * ``"auto"``        — :func:`select_backend` by density and device.
 
 Every tier supports the four storage precisions (f32, bf16, f16, int8 with
@@ -26,6 +28,7 @@ asks for the CPU.
 from __future__ import annotations
 
 import warnings
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -36,6 +39,7 @@ from repro_torch.graph import transition as tr
 from repro_torch.kernels.common import resolve_device, upcast_f32
 from repro_torch.kernels.pagerank_step import (pad_pagerank_operands,
                                                pagerank_step_fused)
+from repro_torch.kernels.streaming_matvec import streaming_matvec
 from repro_torch.obs.registry import default_registry
 from repro_torch.obs.trace import SolveTrace, instrumented_tol_loop
 from repro_torch.pagerank.dense import pagerank_dense, pagerank_dense_fixed
@@ -45,7 +49,8 @@ from repro_torch.pagerank.precision import (PRECISIONS, STORAGE_DTYPES,
                                             solve_dtype)
 from repro_torch.pagerank.resilience import (ConvergenceError, SolveResult,
                                              make_solve_info)
-from repro_torch.pagerank.steps import sparse_step
+from repro_torch.pagerank.steps import (ppr_step_batched, seed_matrix,
+                                        sparse_step)
 
 __all__ = ["PageRankEngine", "select_backend", "BACKENDS", "PRECISIONS"]
 
@@ -106,23 +111,32 @@ def _split_ell(src: np.ndarray, dst: np.ndarray, n: int,
 
 
 def _row_scale(y: torch.Tensor, scales: torch.Tensor | None) -> torch.Tensor:
-    """Fold an int8 layout's per-row f32 scales into the row sums."""
-    return y if scales is None else y * scales
+    """Fold an int8 layout's per-row f32 scales into the row sums of a
+    vector (n,) or a query block (n, Q)."""
+    if scales is None:
+        return y
+    return y * (scales if y.dim() == 1 else scales[:, None])
 
 
 def _matvec(backend: str, operands, x: torch.Tensor) -> torch.Tensor:
-    """y = H @ x on the prepared layout.  Value arrays may be stored in a
-    reduced dtype; they are upcast at the multiply and accumulated in f32.
-    int8 layouts append their per-row f32 scales to the operand tuple."""
+    """y = H @ x on the prepared layout, for a vector x (n,) or a query
+    block x (n, Q).  Value arrays may be stored in a reduced dtype; they
+    are upcast at the multiply and accumulated in f32.  int8 layouts
+    append their per-row f32 scales to the operand tuple."""
     if backend == "dense":
         scales = operands[1] if len(operands) == 2 else None
         return _row_scale(upcast_f32(operands[0]) @ x, scales)
     if backend == "ell":
         data, idx, ov_r, ov_c, ov_v = operands[:5]
         scales = operands[5] if len(operands) == 6 else None
-        y = torch.sum(upcast_f32(data) * x[idx], dim=1)
-        tail = torch.zeros_like(y).index_add_(
-            0, ov_r, upcast_f32(ov_v) * x[ov_c])
+        data, ov_v = upcast_f32(data), upcast_f32(ov_v)
+        if x.dim() == 1:
+            y = torch.sum(data * x[idx], dim=1)
+            tail = torch.zeros_like(y).index_add_(0, ov_r, ov_v * x[ov_c])
+        else:
+            y = torch.sum(data[..., None] * x[idx], dim=1)
+            tail = torch.zeros_like(y).index_add_(
+                0, ov_r, ov_v[:, None] * x[ov_c])
         return _row_scale(y + tail, scales)
     raise ValueError(f"unknown backend {backend!r}")
 
@@ -150,6 +164,61 @@ def _run_tol(operands, dang, d, tol, x0, *, backend: str, n: int,
 
     return instrumented_tol_loop(step, pr0, tol=tol, max_iters=max_iters,
                                  watchdog=watchdog, trace=trace)
+
+
+def _ppr_matvec(backend: str, operands, dang):
+    """The batched ``X -> H @ X`` of personalized PageRank.  The f32 dense
+    operand is the dangling-FIXED H (the uniform 1/n leak folded into the
+    dangling columns — right for global PageRank, wrong for PPR, where the
+    leak teleports to V); zeroing those columns reconstructs the unfixed H
+    exactly, once per call.  Reduced-precision dense tiers store H
+    unfixed, so there the same mask changes nothing."""
+    if backend == "dense":
+        scales = operands[1] if len(operands) == 2 else None
+        H = upcast_f32(operands[0]) * (1.0 - dang)[None, :]
+        return lambda X: _row_scale(H @ X, scales)
+    return lambda X: _matvec(backend, operands, X)
+
+
+def _run_ppr(operands, dang, V, d, *, backend: str, n_iters: int):
+    mv = _ppr_matvec(backend, operands, dang)
+    PR = V
+    for _ in range(n_iters):
+        PR = ppr_step_batched(mv, PR, V, dang, d)
+    return PR
+
+
+def _ppr_fused_operator(Hp, dangp, scales, Vp, d: float):
+    """The batched personalized operator on the fused tier's pre-padded,
+    transposed (Q, Mp) layout: ``Ab(X) = d * (Y + Vp * leak) + (1 - d) *
+    Vp`` with ``Y = X @ Hp.T`` from the streaming kernel.  The leak
+    ``sum(X * dangp)`` per query is taken from X before the kernel (which
+    has no leak output); an int8 layout's (1, Np) row scales multiply Y
+    after it.  ``Vp`` of width Mp serves as a (Q, Np) operand, which needs
+    square padding."""
+    if Hp.shape[0] != Hp.shape[1]:
+        raise ValueError(f"the fused tier's PPR needs a square padded "
+                         f"layout, got {tuple(Hp.shape)}")
+
+    def Ab(X):
+        leak = torch.sum(X * dangp, dim=1)                 # (Q,)
+        Y = streaming_matvec(Hp, X)
+        if scales is not None:
+            Y = Y * scales
+        return d * (Y + Vp * leak[:, None]) + (1.0 - d) * Vp
+
+    return Ab
+
+
+def _run_ppr_fused(Hp, dangp, Vp, scales, *, n: int, n_iters: int,
+                   d: float):
+    # Vp: (Q, Mp) — queries ride the batch axis of streaming_matvec, so
+    # all Q teleport distributions share one sweep over Hp per iteration
+    Ab = _ppr_fused_operator(Hp, dangp, scales, Vp, d)
+    PR = Vp
+    for _ in range(n_iters):
+        PR = Ab(PR)
+    return PR[:, :n].T.contiguous()                       # (n, Q)
 
 
 def _fused_start(x0, dangp, *, n: int, Mp: int, d: float):
@@ -204,8 +273,12 @@ class PageRankEngine:
         src, dst = _dedupe_edges(np.asarray(src), np.asarray(dst), n)
         self.n_edges = int(len(src))
         self.density = self.n_edges / float(n * n)
-        # host edge-set bookkeeping: the sorted src*n+dst keys
+        # host edge-set bookkeeping (sorted src*n+dst keys + degree
+        # vectors): the landmark index (repro_torch.pagerank.landmarks)
+        # reads hub degrees and out-neighborhoods off the engine
         self._keys = delta_mod.edge_keys(src, dst, n)
+        self._outdeg = np.bincount(src, minlength=n).astype(np.int64)
+        self._indeg = np.bincount(dst, minlength=n).astype(np.int64)
         if backend == "auto":
             backend = select_backend(n, self.density, device=dev)
         self._init_common(n, d, backend, precision, dev, metrics)
@@ -240,10 +313,15 @@ class PageRankEngine:
                     metrics=None) -> "PageRankEngine":
         """An engine around prepared operands: ``layout`` is the dict of
         :func:`repro_torch.pagerank.convert.layout_from_numpy`
-        (``operands``, ``scales``, ``dang``)."""
+        (``operands``, ``scales``, ``dang``, and the host edge bookkeeping
+        ``keys``, ``outdeg``, ``indeg`` that the landmark index reads, or
+        ``None`` where the layout came without it)."""
         eng = cls.__new__(cls)
         dev = resolve_device(device)
         eng._init_common(n, d, backend, precision, dev, metrics)
+        eng._keys = layout.get("keys")
+        eng._outdeg = layout.get("outdeg")
+        eng._indeg = layout.get("indeg")
         eng._operands = tuple(o.to(dev) for o in layout["operands"])
         eng._dang = layout["dang"].to(dev)
         if layout.get("scales") is not None:
@@ -384,6 +462,29 @@ class PageRankEngine:
                                max_iters=max_iters, watchdog=watchdog,
                                trace=trace)
             return self._finish_solve(out, tol, max_iters, raise_on_fail)
+
+    def ppr(self, seed_sets: Sequence[np.ndarray],
+            n_iters: int = 100) -> torch.Tensor:
+        """Batched personalized PageRank: one (N, Q) propagation for Q
+        per-user seed sets; returns the (N, Q) rank matrix on the engine's
+        device.  On ``fused_dense`` every iteration is one launch of the
+        streaming kernel for all Q queries."""
+        with self.metrics.span("ppr", backend=self.backend,
+                               q=len(seed_sets)):
+            self.metrics.counter("engine.ppr_queries").inc(len(seed_sets))
+            return self._ppr(seed_sets, n_iters)
+
+    def _ppr(self, seed_sets: Sequence[np.ndarray],
+             n_iters: int) -> torch.Tensor:
+        V = seed_matrix(self.n, seed_sets)
+        if self.backend == "fused_dense":
+            Hp, dangp = self._operands
+            Vp = np.zeros((V.shape[1], Hp.shape[1]), np.float32)
+            Vp[:, :self.n] = V.T
+            return _run_ppr_fused(Hp, dangp, self._put(Vp), self._scales,
+                                  n=self.n, n_iters=n_iters, d=self.d)
+        return _run_ppr(self._operands, self._dang, self._put(V), self.d,
+                        backend=self.backend, n_iters=n_iters)
 
     def _finish_solve(self, out, tol: float, max_iters: int,
                       raise_on_fail: bool) -> SolveResult:

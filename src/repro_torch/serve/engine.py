@@ -1,0 +1,224 @@
+"""Multi-user personalized-PageRank serving over one prepared graph.
+
+The PyTorch counterpart of ``repro.serve.engine.PageRankQueryEngine`` and
+``PPRQuery``.  Per-user seed sets queue up and are flushed as **one**
+batched (N, Q) propagation through
+:meth:`repro_torch.pagerank.engine.PageRankEngine.ppr` — Q queries share
+each sweep over H instead of paying Q independent power iterations (the
+MELOPPR batching).  Two optional, independent accelerations sit in front
+of it: a :class:`~repro_torch.serve.cache.ResultCache` answers repeated
+seed sets on the host, and a
+:class:`~repro_torch.pagerank.landmarks.LandmarkIndex` replaces the cold
+solve with hub-combination warm starts plus a short residual push.
+
+Each flush copies the solved (N, Q) matrix to the host once, then ranks
+every query's top-k there.  Every non-empty flush records one ``serve``
+event (schema v1, the JAX package's keys) and the ``serve.*`` counters and
+histograms.
+
+Not ported yet: live graph updates (``push_update`` / ``refresh`` need a
+dynamic engine, ROADMAP Queue 1 item 8), the resilient serve mode
+(``resilience=``, Queue 1 item 9) and the LM decoder ``ServeEngine``
+(Queue 1 item 12).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+
+from repro_torch.obs.registry import default_registry
+from repro_torch.pagerank.sparse import top_k_proteins
+from repro_torch.serve.cache import ResultCache
+
+__all__ = ["PPRQuery", "PageRankQueryEngine"]
+
+
+@dataclasses.dataclass
+class PPRQuery:
+    uid: int
+    seeds: np.ndarray             # int indices of the user's seed proteins
+    top_k: int = 10
+    result: tuple | None = None   # (indices, scores) once served
+    # resilience tags of the JAX package; the port serves in the legacy
+    # mode only, so they keep their defaults
+    status: str = "unserved"
+    graph_version: int = -1
+    # cache-enabled engines stamp how the answer was produced:
+    # "hit" (served from cache) / "miss" (solved this flush); None when
+    # the engine runs without a cache
+    cache_outcome: str | None = None
+
+
+def _topk(ranks, k: int) -> tuple[np.ndarray, np.ndarray]:
+    idx, scores = top_k_proteins(ranks, k=k)
+    return idx.numpy(), scores.numpy()
+
+
+class PageRankQueryEngine:
+    """Multi-user personalized-PageRank serving over one prepared
+    :class:`~repro_torch.pagerank.engine.PageRankEngine`.
+
+    ``submit`` queues a query and flushes at ``max_batch``; ``flush``
+    serves the queue with one batched solve; ``query_batch`` is the
+    one-shot form.  ``cache`` and ``landmarks`` are optional, as in the
+    JAX package; every query is stamped ``cache_outcome`` when a cache is
+    attached, and flushes record per-outcome counters and latency
+    histograms.
+    """
+
+    def __init__(self, engine, n_iters: int = 100, max_batch: int = 8,
+                 resilience=None, metrics=None,
+                 cache: ResultCache | None = None, landmarks=None):
+        if resilience is not None:
+            raise NotImplementedError(
+                "the resilient serve mode is not ported yet (ROADMAP "
+                "Queue 1 item 9: it needs graph/validate.py and the "
+                "snapshot ladder of pagerank/resilience.py)")
+        self.engine = engine
+        self.n_iters = n_iters
+        self.max_batch = max_batch
+        self._queue: list[PPRQuery] = []
+        self.cache = cache
+        self.landmarks = landmarks
+        # cache-consistency clock, bumped by applied graph updates (none
+        # until dynamic graphs are ported)
+        self.graph_version = 0
+        self._last_flush_stats: dict | None = None
+        # metrics sink: share the engine's registry by default so solves
+        # and serves land in one event log
+        self.metrics = (metrics if metrics is not None
+                        else getattr(engine, "metrics", None)
+                        or default_registry())
+        # freshness clock: when the served ranks last matched the graph
+        self._last_refresh_t = time.monotonic()
+
+    def submit(self, uid: int, seeds, top_k: int = 10) -> PPRQuery:
+        """Queue one user's query; flushed automatically at ``max_batch``.
+        Rejects bad seed sets here, before they can poison a batch."""
+        seeds = np.unique(np.asarray(seeds, np.int64).ravel())
+        if seeds.size == 0:
+            raise ValueError(f"uid {uid}: empty seed set")
+        if seeds.min() < 0 or seeds.max() >= self.engine.n:
+            raise ValueError(f"uid {uid}: seed index out of range "
+                             f"[0, {self.engine.n})")
+        q = PPRQuery(uid, seeds, top_k)
+        self._queue.append(q)
+        if len(self._queue) >= self.max_batch:
+            self.flush()
+        return q
+
+    def push_update(self, delta):
+        """Live graph updates need a dynamic engine; the port has none yet
+        (ROADMAP Queue 1 item 8), so every engine here is static."""
+        raise TypeError(
+            "push_update needs a DynamicPageRankEngine; "
+            f"got a static {type(self.engine).__name__}")
+
+    def flush(self) -> list[PPRQuery]:
+        """Serve every queued query with one batched solve.
+
+        Every non-empty flush records one ``serve`` event and a
+        ``serve.batch_ms`` latency sample, bumps the batch/query counters,
+        and sets the ``serve.freshness_lag_s`` gauge."""
+        t0 = time.perf_counter()
+        batch = self._flush()
+        if not batch:
+            return batch
+        ms = (time.perf_counter() - t0) * 1e3
+        lag = time.monotonic() - self._last_refresh_t
+        m = self.metrics
+        m.histogram("serve.batch_ms").observe(ms)
+        m.gauge("serve.freshness_lag_s").set(lag)
+        m.counter("serve.batches").inc()
+        m.counter("serve.queries").inc(len(batch))
+        extra = {}
+        if self.cache is not None:
+            st = self._last_flush_stats or {}
+            m.counter("serve.cache.hits").inc(st.get("hits", 0))
+            m.counter("serve.cache.misses").inc(st.get("misses", 0))
+            m.counter("serve.cache.evictions").inc(st.get("evictions", 0))
+            if st.get("hit_ms") is not None:
+                m.histogram("serve.cache.hit_ms").observe(st["hit_ms"])
+            if st.get("miss_ms") is not None:
+                m.histogram("serve.cache.miss_ms").observe(st["miss_ms"])
+            # additive optional fields: the event schema stays v=1 and
+            # cache-less logs carry the same keys as the JAX package's
+            extra = dict(cache_hits=st.get("hits", 0),
+                         cache_misses=st.get("misses", 0),
+                         cache_evictions=st.get("evictions", 0),
+                         hit_ms=st.get("hit_ms"), miss_ms=st.get("miss_ms"))
+        m.event("serve", batch=len(batch), freshness_lag_s=lag,
+                graph_version=batch[0].graph_version, ms=ms,
+                status="legacy",
+                precision=getattr(self.engine, "precision", "f32"),
+                **extra)
+        return batch
+
+    def _flush(self) -> list[PPRQuery]:
+        batch, self._queue = self._queue, []
+        if not batch:
+            return []
+        if self.cache is None:
+            self._serve_queries(batch)
+            return batch
+        # cache-enabled path: answer repeats from the cache (no device
+        # work), solve only the misses, and cache what the misses produced
+        precision = str(getattr(self.engine, "precision", "f32"))
+        t0 = time.perf_counter()
+        hits: list[tuple[PPRQuery, np.ndarray]] = []
+        misses: list[tuple[PPRQuery, tuple]] = []
+        for q in batch:
+            key = ResultCache.key(q.seeds, precision)
+            ranks = self.cache.get(key, self.graph_version)
+            if ranks is not None:
+                hits.append((q, ranks))
+            else:
+                misses.append((q, key))
+        st = {"hits": len(hits), "misses": len(misses), "evictions": 0,
+              "hit_ms": None, "miss_ms": None}
+        if hits:
+            for q, ranks in hits:
+                q.result = _topk(ranks, q.top_k)
+                q.cache_outcome = "hit"
+            st["hit_ms"] = (time.perf_counter() - t0) * 1e3
+        if misses:
+            t1 = time.perf_counter()
+            PPR = self._serve_queries([q for q, _ in misses])
+            for j, (q, key) in enumerate(misses):
+                q.cache_outcome = "miss"
+                st["evictions"] += self.cache.put(
+                    key, np.asarray(PPR[:, j], np.float32),
+                    self.graph_version)
+            st["miss_ms"] = (time.perf_counter() - t1) * 1e3
+        self._last_flush_stats = st
+        return batch
+
+    def _serve_queries(self, batch) -> np.ndarray:
+        """Answer ``batch`` in place with one batched solve; returns the
+        solved (N, Q) host matrix so the cache path can keep the full rank
+        vectors."""
+        PPR = self._solve_batch([q.seeds for q in batch])      # (N, Q)
+        for j, q in enumerate(batch):
+            q.result = _topk(PPR[:, j], q.top_k)
+        return PPR
+
+    def _solve_batch(self, seed_sets) -> np.ndarray:
+        """The cold-solve choke point: hub-combination + bounded residual
+        push when a landmark index is attached (exact-solve fallback per
+        column lives inside ``answer``), else the classic batched power
+        iteration, copied to the host once."""
+        if self.landmarks is not None:
+            self.landmarks.ensure(self.graph_version)
+            X, _ = self.landmarks.answer(seed_sets)
+            return X
+        return self.engine.ppr(seed_sets, n_iters=self.n_iters).cpu().numpy()
+
+    def query_batch(self, seed_sets, top_k: int = 10) -> list[tuple]:
+        """One-shot convenience: serve ``seed_sets`` now, return per-user
+        ``(indices, scores)`` ranked top-k."""
+        queries = [self.submit(uid, s, top_k=top_k)
+                   for uid, s in enumerate(seed_sets)]
+        self.flush()
+        return [q.result for q in queries]

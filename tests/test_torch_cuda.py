@@ -1,7 +1,8 @@
-"""PyTorch port on the card: the hand-written fused-step kernel against
-its plain version, the wrapper's checks on CUDA tensors, and the engine's
-fused tier.  Every test here needs a CUDA card and ``nvcc``; without a
-card each one skips with the reason (they carry the ``cuda`` marker).
+"""PyTorch port on the card: the hand-written fused-step and streaming
+matvec kernels against their plain versions, the wrappers' checks on CUDA
+tensors, and the engine's fused tier (``run`` and batched PPR).  Every
+test here needs a CUDA card and ``nvcc``; without a card each one skips
+with the reason (they carry the ``cuda`` marker).
 On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -12,9 +13,11 @@ import torch
 
 from repro_torch.graph.generators import protein_network
 from repro_torch.kernels import pagerank_step as k1
-from repro_torch.kernels.ref import pagerank_step_fused_ref
+from repro_torch.kernels import streaming_matvec as k2
+from repro_torch.kernels.ref import (pagerank_step_fused_ref,
+                                     streaming_matvec_ref)
 from repro_torch.obs.registry import NullRegistry
-from repro_torch.pagerank import PageRankEngine
+from repro_torch.pagerank import LandmarkIndex, PageRankEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -109,3 +112,89 @@ def test_engine_fused_tier_on_card(cuda):
             d = dense.run_tol(tol=1e-6)
             assert r.info.converged and abs(r.info.iters - d.info.iters) <= 1
         assert torch.isfinite(pr).all()
+
+
+def _smv_case(N, M, B, precision, dev, seed=0):
+    """W (N, M) and X (B, M) at PageRank's scale: W in [0, 2/M), X rows
+    distributions; int8 as integers (their scales are the caller's)."""
+    rng = np.random.default_rng(seed)
+    W = rng.random((N, M), dtype=np.float32) * (2.0 / M)
+    if precision == "int8":
+        W = np.rint(W * (127.0 * M / 2.0)).astype(np.int8)
+    Wt = torch.from_numpy(W).to(dev)
+    if precision != "int8":
+        Wt = Wt.to(STORE[precision])
+    X = rng.random((B, M), dtype=np.float32)
+    X /= X.sum(axis=1, keepdims=True)
+    return Wt, torch.from_numpy(X).to(dev)
+
+
+@pytest.mark.parametrize("precision", list(STORE))
+@pytest.mark.parametrize("N,M,B", [(300, 130, 3), (256, 256, 1),
+                                   (512, 768, 8), (5120, 5120, 1),
+                                   (5120, 5120, 8), (5120, 5120, 64),
+                                   (640, 384, 100)])
+def test_streaming_matvec_matches_plain(cuda, N, M, B, precision):
+    W, X = _smv_case(N, M, B, precision, cuda, seed=N + M + B)
+    before = k2.launches[precision]
+    Y = k2.streaming_matvec(W, X)
+    torch.cuda.synchronize()
+    assert k2.launches[precision] == before + 1
+    assert Y.shape == (B, N) and Y.dtype == torch.float32
+    ref = streaming_matvec_ref(W, X)
+    torch.testing.assert_close(Y, ref, **TOL32)
+    torch.testing.assert_close(Y, ref, **TIGHT)
+    assert torch.equal(k2.streaming_matvec(W, X), Y)
+    # a query's result does not depend on what shares its batch
+    assert torch.equal(k2.streaming_matvec(W, X[:1].contiguous()), Y[:1])
+
+
+def test_streaming_matvec_rejects_what_the_kernel_does_not_take(cuda):
+    W, X = _smv_case(256, 256, 4, "f32", cuda)
+    flat = torch.empty(256 * 256 + 1, device=cuda)
+    misaligned = flat[1:].view(256, 256)
+    bad = [
+        (W.double(), X, "storage dtype"),
+        (W, X.double(), "float32"),
+        (W, X.cpu(), "one CUDA device"),
+        (W.t(), X, "contiguous"),
+        (W, X[:, :128].contiguous(), "must be"),
+        (misaligned, X, "aligned"),
+        (W, torch.empty(4 * 256 + 1, device=cuda)[1:].view(4, 256),
+         "aligned"),
+    ]
+    for w, x, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            k2.streaming_matvec(w, x)
+
+
+def test_engine_fused_ppr_on_card(cuda):
+    n = 1200
+    src, dst = protein_network(n, seed=3)
+    rng = np.random.default_rng(4)
+    seed_sets = [rng.choice(n, size=rng.integers(1, 6), replace=False)
+                 for _ in range(8)]
+    for precision in STORE:
+        dense = PageRankEngine(src, dst, n, backend="dense",
+                               precision=precision, device=cuda,
+                               metrics=NullRegistry())
+        ref = dense.ppr(seed_sets, n_iters=100)
+        eng = PageRankEngine(src, dst, n, backend="fused_dense",
+                             precision=precision, device=cuda,
+                             metrics=NullRegistry())
+        before = k2.launches[precision]
+        X = eng.ppr(seed_sets, n_iters=100)
+        torch.cuda.synchronize()
+        assert k2.launches[precision] == before + 100
+        assert X.shape == (n, 8) and torch.isfinite(X).all()
+        torch.testing.assert_close(X, ref, rtol=1e-5, atol=1e-7)
+        assert torch.equal(eng.ppr(seed_sets, n_iters=100), X)
+        if precision == "f32":
+            torch.testing.assert_close(X.sum(dim=0),
+                                       torch.ones(8, device=cuda),
+                                       rtol=0, atol=1e-5)
+            lm = LandmarkIndex(eng, n_hubs=16, tol=1e-7)
+            A, info = lm.answer(seed_sets)
+            exact = eng.ppr(seed_sets, n_iters=200).cpu().numpy()
+            assert info["fallbacks"] == 0
+            assert float(np.abs(A - exact).max()) <= 1e-5

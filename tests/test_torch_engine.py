@@ -147,7 +147,11 @@ def test_warm_start(net, backend):
 
 def test_res0_early_exit_and_max_iters_bound():
     """An already-converged start takes no step; the loop never issues
-    more than max_iters steps."""
+    more than max_iters steps.  A tensor ``res0`` (the landmark push's)
+    stays on the device and gives the JAX loop's early exit and
+    iteration count."""
+    from repro.obs.trace import instrumented_tol_loop as jloop
+    from repro_torch.obs.trace import instrumented_tol_loop
     H = torch.eye(4) * 0.5
     calls = []
 
@@ -155,7 +159,6 @@ def test_res0_early_exit_and_max_iters_bound():
         calls.append(1)
         return H @ x, torch.tensor(1.0)
 
-    from repro_torch.obs.trace import instrumented_tol_loop
     x0 = torch.ones(4)
     state, i, res, grow, ring = instrumented_tol_loop(
         step, x0, tol=1e-3, max_iters=10, res0=0.0)
@@ -164,6 +167,38 @@ def test_res0_early_exit_and_max_iters_bound():
         step, x0, tol=1e-3, max_iters=3)
     assert int(i) == 3 and len(calls) == 3
     assert torch.equal(state, x0 / 8)
+
+    # a halving residual from a tensor res0, against the JAX while_loop
+    def tstep(x):
+        new = 0.5 * x
+        return new, torch.sum(torch.abs(new - x))
+
+    def jstep(x):
+        new = 0.5 * x
+        return new, jnp.sum(jnp.abs(new - x))
+
+    for r0, max_iters in ((0.5, 40), (1e-4, 40), (4.0, 40), (4.0, 3)):
+        res0 = torch.tensor(r0)
+        tout = instrumented_tol_loop(tstep, x0, tol=1e-3,
+                                     max_iters=max_iters, trace=False,
+                                     res0=res0)
+        jout = jloop(jstep, jnp.ones(4), tol=1e-3, max_iters=max_iters,
+                     trace=False, res0=jnp.float32(r0))
+        assert int(tout[1]) == int(jout[1])
+        assert float(tout[2]) == float(jout[2])
+        np.testing.assert_array_equal(tout[0].numpy(), np.asarray(jout[0]))
+    assert int(tout[1]) == 3
+    # res0 is used as given, with no host round trip
+    seen = []
+
+    class Res0(torch.Tensor):
+        def __float__(self):
+            seen.append(1)
+            return super().__float__()
+
+    instrumented_tol_loop(tstep, x0, tol=1e-3, max_iters=2, trace=False,
+                          res0=torch.tensor(0.5).as_subclass(Res0))
+    assert not seen
 
 
 @pytest.mark.parametrize("scale,status", [(50.0, "diverged"),
@@ -371,11 +406,20 @@ def test_import_hygiene_subprocess():
         "from repro_torch.graph.generators import protein_network\n"
         "from repro_torch.pagerank import PageRankEngine\n"
         "from repro_torch.launch import pagerank_run\n"
-        "from repro_torch.pagerank import convert\n"
+        "from repro_torch.pagerank import convert, LandmarkIndex\n"
+        "from repro_torch.pagerank import sparse, fidelity\n"
+        "from repro_torch.serve import PageRankQueryEngine, ResultCache\n"
         "src, dst = protein_network(64, seed=0)\n"
         "for b in ('dense', 'ell', 'fused_dense'):\n"
         "    e = PageRankEngine(src, dst, 64, backend=b, device='cpu')\n"
         "    e.run(5); e.run_tol(1e-6, max_iters=50)\n"
+        "    X = e.ppr([[1, 2], [3]], n_iters=10)\n"
+        "    lm = LandmarkIndex(e, n_hubs=4, n_iters=20)\n"
+        "    qe = PageRankQueryEngine(e, n_iters=20, cache=ResultCache(8),\n"
+        "                             landmarks=lm)\n"
+        "    r = qe.query_batch([[1, 2], [3], [1, 2]], top_k=3)\n"
+        "    assert len(r) == 3 and lm.built\n"
+        "    fidelity.topk_overlap(X[:, 0], X[:, 1], k=5)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"

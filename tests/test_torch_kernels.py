@@ -1,8 +1,9 @@
-"""PyTorch port, kernel layer on the CPU: the fused PageRank step's plain
-version (what the wrapper runs for CPU tensors) against the JAX Pallas
-kernel in interpret mode, the one-time padding, and the wrapper's checks.
-The CUDA kernel itself is held against the same plain version on the card
-by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``."""
+"""PyTorch port, kernel layer on the CPU: the plain versions of the fused
+PageRank step and of the streaming batched matvec (what the wrappers run
+for CPU tensors) against the JAX Pallas kernels in interpret mode, the
+one-time padding, and the wrappers' checks.  The CUDA kernels themselves
+are held against the same plain versions on the card by ``chip_smoke.py``
+and ``tests/test_torch_cuda.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,12 +11,16 @@ import torch
 
 from repro.kernels import pagerank_step as jps
 from repro.kernels import ref as jref
+from repro.kernels.streaming_matvec import streaming_matvec as jsmv
 from repro_torch.kernels import pagerank_step as tps
+from repro_torch.kernels import streaming_matvec as tsmv
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.common import resolve_device, upcast_f32
 
 # f32 accumulation in another order than the oracle (tests/test_kernels.py)
 TOL32 = dict(rtol=1e-5, atol=5e-5)
+# reduced-precision storage, f32 accumulation (tests/test_kernels.py)
+TOL_LOW = dict(rtol=2e-3, atol=2e-3)
 PRECISIONS = ("f32", "bf16", "f16", "int8")
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16, "f16": jnp.float16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
@@ -148,3 +153,58 @@ def test_build_module_lists_sources_without_building():
     assert "pagerank_step" in _build.sources()
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert tps._lib is None or torch.cuda.is_available()
+
+
+def _smv_operands(N, M, B, precision, seed):
+    """Seeded numpy W (N, M) in the precision's storage and X (B, M)."""
+    rng = np.random.default_rng(seed)
+    W = rng.standard_normal((N, M), dtype=np.float32)
+    X = rng.standard_normal((B, M), dtype=np.float32)
+    if precision == "int8":
+        W = np.clip(np.rint(W * 40.0), -127, 127).astype(np.int8)
+    return W, X
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("N,M", [(256, 256), (300, 130)])
+def test_streaming_matvec_matches_pallas(N, M, B, precision):
+    """The wrapper's CPU path (the plain version) against the JAX kernel in
+    interpret mode, as tests/test_kernels.py runs it: any N and M, the
+    four storage dtypes, f32 accumulation."""
+    W, X = _smv_operands(N, M, B, precision, seed=N + M + B)
+    want = np.asarray(jsmv(_jax_store(W, precision), jnp.asarray(X),
+                           block_n=128, block_m=128))
+    before = dict(tsmv.launches)
+    got = tsmv.streaming_matvec(_torch_store(W, precision),
+                                torch.from_numpy(X))
+    assert tsmv.launches == before         # the CPU path launches nothing
+    assert got.shape == (B, N) and got.dtype == torch.float32
+    tol = TOL32 if precision == "f32" else TOL_LOW
+    np.testing.assert_allclose(got.numpy(), want, **tol)
+
+
+def test_streaming_matvec_ref_matches_jax_ref():
+    W, X = _smv_operands(64, 96, 5, "bf16", seed=11)
+    want = np.asarray(jref.streaming_matvec_ref(
+        _jax_store(W, "bf16"), jnp.asarray(X)))
+    got = tref.streaming_matvec_ref(_torch_store(W, "bf16"),
+                                    torch.from_numpy(X))
+    np.testing.assert_allclose(got.numpy(), want, **TOL32)
+
+
+def test_streaming_matvec_rejects_mismatched_shapes():
+    with pytest.raises(ValueError, match="must be"):
+        tsmv.streaming_matvec(torch.zeros((8, 16)), torch.zeros((2, 12)))
+    with pytest.raises(ValueError, match="must be"):
+        tsmv.streaming_matvec(torch.zeros((8, 16)), torch.zeros(16))
+
+
+def test_streaming_matvec_reset_launches():
+    tsmv.launches["int8"] += 2
+    tsmv.reset_launches()
+    assert set(tsmv.launches) == set(PRECISIONS)
+    assert all(v == 0 for v in tsmv.launches.values())
+    assert tsmv._lib is None or torch.cuda.is_available()
+    from repro_torch.kernels import _build
+    assert "streaming_matvec" in _build.sources()
