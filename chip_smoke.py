@@ -14,8 +14,11 @@ result line):
    kernel build (timed);
 2. every kernel against its plain PyTorch version on the card, for every
    storage dtype, at small shapes (unpadded ones included) and at the main
-   paths' shapes, and two calls bit-identical: K1, the fused step, and K2,
-   the streaming batched matvec (at B = 1, 8 and 64 on 5120 x 5120);
+   paths' shapes, and two calls bit-identical: K1, the fused step; K2, the
+   streaming batched matvec (at B = 1, 8 and 64 on 5120 x 5120); K3, the
+   BSR SpMV (bs 32 and 128, ragged n, an empty block row, B = 1, 8, 64 and
+   100, and the 5000-protein 40 x 40-block layout at B = 1, 8, 64); K4,
+   the unpadded step (300 x 130 and 5000 x 5000);
 3. the main path at the paper's full size: PageRank over the 5000-protein
    network, 100 iterations, d = 0.85, through ``PageRankEngine`` on the
    ``dense``, ``ell`` and ``fused_dense`` tiers (every precision on the
@@ -30,10 +33,25 @@ result line):
    held to an exact 200-iteration solve, every cache hit to its miss); K2's
    launch counts are zeroed before and read after each step and checked
    exactly;
+3c. the ``bsr`` tier on the same network at every precision: ``run(100)``
+   (exactly 100 K3 launches), ``run_tol(1e-6)`` and ``ppr`` of 8 seed sets,
+   each held to the ``dense`` tier at its own precision, top-10 identical;
+3d. quickstart's loop at the paper's size: 100 ``ops.pagerank_iteration``
+   steps (exactly 100 K4 launches) against ``pagerank_dense_fixed``, and
+   the same loop with the dangling leak on the bf16 and f16 ``dense`` H
+   against that tier's ``run(100)``;
+3e. live updates: ``examples/streaming_pagerank.py``'s ``EdgeStream`` over
+   a ``DynamicPageRankEngine`` on ``bsr`` and on ``fused_dense`` (f32),
+   16 ticks of ``push_update`` + ``flush`` serving Zipf picks from the
+   serve pool through ``ResultCache(1024)``; the ranks end within L1 1e-5
+   of a from-scratch solve, every cached answer matches an exact solve of
+   the final graph, and the K1 / K2 / K3 launches of every tick are
+   checked exactly against its strategy and sweeps;
 4. times on the card (CUDA events, medians) beside each kernel's bound:
    the kernel, its plain version and the library call each with the L2
    cache flushed before the call, and the kernel back to back as well;
-   the serve flush's p50 / p95 and the landmark build time.
+   the serve flush's p50 / p95 and the landmark build time; ``run(100)``
+   and ``run_tol`` on every tier, ``bsr`` included.
 
 The last lines are a JSON object ``{"kernels": [...]}``, the card's name
 and power limit as ``nvidia-smi`` prints them, and the result line
@@ -70,6 +88,16 @@ K1_SOURCE = "src/repro_torch/kernels/csrc/pagerank_step.cu"
 K1_REPLACES = "src/repro/kernels/pagerank_step.py:86"
 K2_SOURCE = "src/repro_torch/kernels/csrc/streaming_matvec.cu"
 K2_REPLACES = "src/repro/kernels/streaming_matvec.py:29"
+K3_SOURCE = "src/repro_torch/kernels/csrc/bsr_spmv.cu"
+K3_REPLACES = "src/repro/kernels/bsr_spmv.py:29"
+K4_SOURCE = K1_SOURCE
+K4_REPLACES = "src/repro/kernels/pagerank_step.py:35"
+# the live phase: examples/streaming_pagerank.py's stream and tick count
+STREAM = dict(m_edges=4, seed=0, insert_per_step=6, delete_per_step=4)
+TICKS, QUERIES_PER_TICK = 16, 4
+# K4's storage types on its path (ops.pagerank_iteration takes no int8
+# row scales, as in the JAX package)
+K4_PRECISIONS = ("f32", "bf16", "f16")
 # the serve phase: 8 queries per flush, a 64-hub landmark index, and the
 # query mix of benchmarks/serve_bench.py (Zipf(1.1) over a pool of seed
 # sets, here 32 sets of 1 to 5 proteins, 64 queries)
@@ -222,6 +250,26 @@ def k2_case(np, N, M, B, precision, seed):
     return W, X
 
 
+def bsr_case(np, torch, BSRMatrix, n, bs, density, B, precision, seed,
+             empty_row=False):
+    """A BSR layout (built on the host) of a seeded (n, n) matrix at
+    PageRank's scale, blocks in the storage type (int8 as integers, their
+    scales being the caller's), and X (B, n) whose rows are distributions;
+    ``empty_row`` leaves block row 0 without a block."""
+    rng = np.random.default_rng(seed)
+    A = rng.random((n, n), dtype=np.float32) * (2.0 / n)
+    A[rng.random((n, n)) > density] = 0.0
+    if empty_row:
+        A[:bs] = 0.0
+    bsr = BSRMatrix.from_dense(A, bs=bs, device="cpu")
+    blocks = bsr.blocks
+    if precision == "int8":
+        blocks = torch.round(blocks * (127.0 * n / 2.0)).to(torch.int8)
+    X = rng.random((B, n), dtype=np.float32)
+    X /= X.sum(axis=1, keepdims=True)
+    return blocks, bsr.block_cols, X
+
+
 def zipf_queries(np, n, seed):
     """The serve phase's traffic: a pool of POOL seed sets of 1 to 5
     proteins and N_QUERIES picks from it with Zipf(ZIPF_S) weights."""
@@ -234,9 +282,10 @@ def zipf_queries(np, n, seed):
 
 
 def issued_sweeps(sweeps, max_pushes, chunk):
-    """Sweeps the port's chunked tolerance loop issues for a push that
-    converged after ``sweeps``: whole chunks of ``chunk`` (the masked
-    sweeps after the exit change nothing), never past ``max_pushes``."""
+    """Sweeps (or steps) the port's chunked tolerance loop issues for a
+    push or solve that exited after ``sweeps``: whole chunks of ``chunk``
+    (the masked sweeps after the exit change nothing), never past
+    ``max_pushes``."""
     return min(max_pushes, -(-sweeps // chunk) * chunk)
 
 
@@ -284,16 +333,23 @@ def main() -> int:
     dev = torch.device("cuda")
 
     from repro_torch.configs.pagerank_5k import full
+    from repro_torch.graph.delta import EdgeStream, apply_delta
     from repro_torch.graph.generators import protein_network
-    from repro_torch.kernels import _build
+    from repro_torch.graph.sparse import BSRMatrix
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import bsr_spmv as k3
     from repro_torch.kernels import pagerank_step as k1
     from repro_torch.kernels import streaming_matvec as k2
-    from repro_torch.kernels.ref import (pagerank_step_fused_ref,
+    from repro_torch.kernels.ref import (bsr_spmv_ref,
+                                         pagerank_step_fused_ref,
+                                         pagerank_step_ref,
                                          streaming_matvec_ref)
     from repro_torch.launch import pagerank_run
     from repro_torch.obs.registry import MetricsRegistry, NullRegistry
     from repro_torch.obs.trace import CHUNK
-    from repro_torch.pagerank import LandmarkIndex, PageRankEngine
+    from repro_torch.pagerank import (DynamicPageRankEngine, LandmarkIndex,
+                                      PageRankEngine)
+    from repro_torch.pagerank.dense import pagerank_dense_fixed
     from repro_torch.pagerank.fidelity import topk_overlap as overlap
     from repro_torch.pagerank.sparse import top_k_proteins
     from repro_torch.serve import PageRankQueryEngine, ResultCache
@@ -382,6 +438,84 @@ def main() -> int:
             rel = float(((Y - ref).abs() / ref.abs()).max())
             key = (p, B if N == 5120 else 0)
             k2_err[key] = max(k2_err.get(key, 0.0), e)
+            print(f"  {what}: max|diff| {e:.3e} (relative {rel:.3e})")
+
+    bsr_engines = {p: PageRankEngine(src, dst, N_NODES, d=DAMPING,
+                                     backend="bsr", precision=p, device=dev,
+                                     metrics=NullRegistry())
+                   for p in PRECISIONS}
+
+    def k3_compare(blocks, cols, X, what):
+        Y = k3.bsr_spmv(blocks, cols, X)
+        torch.cuda.synchronize()
+        ref = bsr_spmv_ref(blocks, cols, X)
+        e = allclose(torch, Y, ref, **TOL32, what=what)
+        allclose(torch, Y, ref, **TIGHT, what=what)
+        check(Y.shape == (X.shape[0], blocks.shape[0] * blocks.shape[2]),
+              f"{what}: shape {tuple(Y.shape)}")
+        check(bool(torch.equal(k3.bsr_spmv(blocks, cols, X), Y)),
+              f"{what}: two calls are not bit-identical")
+        check(bool(torch.equal(k3.bsr_spmv(blocks, cols, X[0]), Y[0])),
+              f"{what}: query 0 alone differs from query 0 in the batch")
+        nz = ref != 0
+        rel = float(((Y - ref).abs()[nz] / ref.abs()[nz]).max())
+        print(f"  {what}: max|diff| {e:.3e} (relative {rel:.3e})")
+        return Y, e
+
+    print("K3 vs plain version on the card (rtol 1e-5, atol 5e-5, and "
+          "rtol 1e-5, atol 1e-9; X rows are distributions):")
+    k3_err = {}
+    for p in PRECISIONS:
+        for n, bs, density, B, empty in (
+                (200, 32, 0.3, 1, False), (300, 32, 0.2, 8, True),
+                (200, 128, 0.3, 64, False), (300, 128, 0.5, 100, True)):
+            blocks, cols, X = bsr_case(np, torch, BSRMatrix, n, bs, density,
+                                       B, p, seed=n + bs + B,
+                                       empty_row=empty)
+            if p != "int8":
+                blocks = blocks.to(engines[p].storage_dtype)
+            Y, e = k3_compare(blocks.to(dev), cols.to(dev),
+                              torch.from_numpy(X).to(dev),
+                              f"K3 {p} n={n} bs={bs} B={B}"
+                              + (" empty block row" if empty else ""))
+            if empty:
+                check(bool(torch.all(Y[:, :bs] == 0)),
+                      f"K3 {p}: the empty block row is not 0")
+            k3_err[(p, 0)] = max(k3_err.get((p, 0), 0.0), e)
+        bsr = bsr_engines[p].operands[0]
+        rng = np.random.default_rng(2)
+        for B in (1, SERVE_BATCH, N_HUBS):
+            X = np.zeros((B, -(-N_NODES // bsr.block_size)
+                          * bsr.block_size), np.float32)
+            X[:, :N_NODES] = rng.dirichlet(np.ones(N_NODES), size=B)
+            _, e = k3_compare(bsr.blocks, bsr.block_cols,
+                              torch.from_numpy(X).to(dev),
+                              f"K3 {p} protein {tuple(bsr.blocks.shape)} "
+                              f"B={B}")
+            k3_err[(p, B)] = e
+
+    print("K4 vs plain version on the card (rtol 1e-5, atol 5e-5, and "
+          "rtol 1e-5, atol 1e-9):")
+    k4_err = {}
+    for p in PRECISIONS:
+        for N, M in ((300, 130), (N_NODES, N_NODES)):
+            W, X = k2_case(np, N, M, 1, p, seed=N + M)
+            H = torch.from_numpy(W).to(dev)
+            if p != "int8":
+                H = H.to(engines[p].storage_dtype)
+            x = torch.from_numpy(X[0]).to(dev)
+            t = torch.tensor(0.15 / N, device=dev)
+            y = k1.pagerank_step(H, x, t, d=DAMPING)
+            torch.cuda.synchronize()
+            ref = pagerank_step_ref(H, x, t, d=DAMPING)
+            what = f"K4 {p} {N}x{M}"
+            e = allclose(torch, y, ref, **TOL32, what=what)
+            allclose(torch, y, ref, **TIGHT, what=what)
+            check(y.shape == (N,), f"{what}: shape {tuple(y.shape)}")
+            check(bool(torch.equal(k1.pagerank_step(H, x, t, d=DAMPING), y)),
+                  f"{what}: two calls are not bit-identical")
+            k4_err[p] = max(k4_err.get(p, 0.0), e)
+            rel = float(((y - ref).abs() / ref.abs()).max())
             print(f"  {what}: max|diff| {e:.3e} (relative {rel:.3e})")
 
     # ---------------------------------------------------------------- 3 --
@@ -616,6 +750,201 @@ def main() -> int:
           f"{serve_stats['flush_p95_ms']:.3f} ms on {card}; K2 launches on "
           f"the serve path {serve_launches}")
 
+    # --------------------------------------------------------------- 3c --
+    print(f"bsr tier: protein_network({N_NODES}, seed={SEED}), d={DAMPING}, "
+          "bs=128, every precision held to the dense tier at its own "
+          "precision; K3 launch counts zeroed before and read after")
+    t_bsr = time.perf_counter()
+    k3.reset_launches()
+    dense_at = {"f32": dense}
+    dense_at.update({p: PageRankEngine(src, dst, N_NODES, d=DAMPING,
+                                       backend="dense", precision=p,
+                                       device=dev, metrics=NullRegistry())
+                     for p in PRECISIONS[1:]})
+    bsr_pr, bsr_iters, bsr_err = {}, {}, {}
+    for p in PRECISIONS:
+        eng = bsr_engines[p]
+        ref_p = pr["dense"] if p == "f32" else dense_low[p]
+        before = k3.launches[p]
+        bsr_pr[p] = eng.run(N_ITERS)
+        torch.cuda.synchronize()
+        got = k3.launches[p] - before
+        check(got == N_ITERS,
+              f"bsr[{p}]: run({N_ITERS}) launched K3 {got} times")
+        check(bool(torch.isfinite(bsr_pr[p]).all()), f"bsr[{p}]: bad output")
+        e_run = allclose(torch, bsr_pr[p], ref_p, **TOL_TIER,
+                         what=f"bsr[{p}] run vs dense[{p}]")
+        top_b = top_k_proteins(bsr_pr[p], k=10)[0].cpu().numpy()
+        top_d = top_k_proteins(ref_p, k=10)[0].cpu().numpy()
+        check(np.array_equal(top_b, top_d),
+              f"bsr[{p}] top-10 {top_b} != dense[{p}] {top_d}")
+        before = k3.launches[p]
+        r = eng.run_tol(tol=1e-6, max_iters=1000)
+        torch.cuda.synchronize()
+        got = k3.launches[p] - before
+        rd = dense_at[p].run_tol(tol=1e-6, max_iters=1000)
+        check(r.info.converged and r.info.iters == rd.info.iters,
+              f"bsr[{p}] run_tol: {r.info.status} after {r.info.iters} "
+              f"iterations, dense[{p}] {rd.info.iters}")
+        check(got == issued_sweeps(r.info.iters, 1000, CHUNK),
+              f"bsr[{p}] run_tol of {r.info.iters} iterations launched K3 "
+              f"{got} times")
+        e_tol = allclose(torch, r.pr, rd.pr, **TOL_TIER,
+                         what=f"bsr[{p}] run_tol vs dense[{p}]")
+        before = k3.launches[p]
+        X = eng.ppr(sets8, N_ITERS)
+        torch.cuda.synchronize()
+        got = k3.launches[p] - before
+        check(got == N_ITERS,
+              f"bsr[{p}]: ppr({N_ITERS}) launched K3 {got} times")
+        e_ppr = allclose(torch, X, dense_at[p].ppr(sets8, N_ITERS),
+                         **TOL_TIER, what=f"bsr[{p}] ppr vs dense[{p}]")
+        bsr_err[p] = {"run": e_run, "run_tol": e_tol, "ppr": e_ppr}
+        bsr_iters[p] = r.info.iters
+        print(f"  bsr[{p}] vs dense[{p}] max|diff| (rtol 1e-5, atol 1e-7): "
+              f"run {e_run:.3e}, run_tol {e_tol:.3e} ({r.info.iters} "
+              f"iterations each), ppr {e_ppr:.3e}; top-10 {top_b.tolist()}")
+    bsr_launches = dict(k3.launches)
+    bsr_s = time.perf_counter() - t_bsr
+    check(all(bsr_launches[p] > 0 for p in PRECISIONS),
+          f"the bsr path launched K3 {bsr_launches}")
+    print(f"  bsr path took {bsr_s:.2f} s; K3 launches {bsr_launches}")
+
+    # --------------------------------------------------------------- 3d --
+    print(f"ops.pagerank_iteration: quickstart's loop at N={N_NODES}, "
+          f"{N_ITERS} steps on the dense tier's H: f32 (dangling-fixed), "
+          "bf16 and f16 (unfixed, with the dangling leak); K4 launch counts "
+          "zeroed before and read after")
+    k1.reset_launches()
+    e_ops = {}
+    for p in K4_PRECISIONS:
+        H = dense_at[p].operands[0]
+        dang = None if p == "f32" else dense_at[p]._dang
+        x = torch.full((N_NODES,), 1.0 / N_NODES, device=dev)
+        for _ in range(N_ITERS):
+            x = ops.pagerank_iteration(H, x, dang, d=DAMPING)
+        torch.cuda.synchronize()
+        want = (pagerank_dense_fixed(H, n_iters=N_ITERS, d=DAMPING)
+                if p == "f32" else dense_low[p])
+        # tests/test_kernels.py's tolerance for the kernel loop against
+        # the dense reference
+        e_ops[p] = allclose(torch, x, want, rtol=1e-4, atol=1e-7,
+                            what=f"ops.pagerank_iteration loop [{p}] vs "
+                            "the dense tier")
+        top_ops = top_k_proteins(x, k=10)[0].cpu().numpy()
+        top_ref = top_k_proteins(want, k=10)[0].cpu().numpy()
+        check(np.array_equal(top_ops, top_ref),
+              f"ops loop [{p}] top-10 {top_ops} != dense {top_ref}")
+    k4_launches = dict(k1.step_launches)
+    check(k4_launches == {q: N_ITERS if q in K4_PRECISIONS else 0
+                          for q in PRECISIONS}
+          and sum(k1.launches.values()) == 0,
+          f"the loops launched K4 {k4_launches}, K1 {k1.launches}")
+    print("  max|diff| "
+          + ", ".join(f"{p} {e:.3e}" for p, e in e_ops.items())
+          + f"; top-10 as the dense tier; K4 launches {k4_launches}")
+
+    # --------------------------------------------------------------- 3e --
+    print(f"live updates: EdgeStream({N_NODES}, {STREAM}), {TICKS} ticks "
+          f"of push_update + flush, {QUERIES_PER_TICK} Zipf picks from the "
+          "serve pool per tick through ResultCache(1024); launch counts "
+          "zeroed before and read after each flush")
+    zipf_w = 1.0 / np.arange(1, POOL + 1, dtype=np.float64) ** ZIPF_S
+    zipf_w /= zipf_w.sum()
+    live = {}
+    for backend in ("bsr", "fused_dense"):
+        t_live = time.perf_counter()
+        stream = EdgeStream(N_NODES, **STREAM)
+        cur = stream.base()
+        reg = MetricsRegistry()
+        dyn = DynamicPageRankEngine(cur[0], cur[1], N_NODES, d=DAMPING,
+                                    backend=backend, device=dev,
+                                    metrics=reg)
+        dyn.run_tol(1e-7, max_iters=1000)
+        cache = ResultCache(1024)
+        qe = PageRankQueryEngine(dyn, n_iters=N_ITERS, max_batch=SERVE_BATCH,
+                                 metrics=reg, cache=cache)
+        rng = np.random.default_rng(SEED + 3)
+        ticks = []
+        for tick, delta in zip(range(TICKS), stream):
+            qe.push_update(delta)
+            queries = [qe.submit(tick * 10 + q,
+                                 pool[rng.choice(POOL, p=zipf_w)], top_k=10)
+                       for q in range(QUERIES_PER_TICK)]
+            for k in (k1, k2, k3):
+                k.reset_launches()
+            qe.flush()
+            torch.cuda.synchronize()
+            info = qe.last_update_info
+            check(qe.n_refreshes == tick + 1 and info.healthy,
+                  f"{backend} tick {tick}: refresh {info}")
+            misses = sum(q.cache_outcome == "miss" for q in queries)
+            # the push launches once for its start residual and once per
+            # issued sweep; warm and rebuild once per issued step (K1 on
+            # the fused tier); the flush's cold ppr N_ITERS times
+            solve = issued_sweeps(info.iters, 1000, CHUNK)
+            push = info.strategy == "push"
+            ppr_l = N_ITERS if misses else 0
+            if backend == "bsr":
+                want = {"K1": 0, "K2": 0,
+                        "K3": solve + int(push) + ppr_l}
+            else:
+                want = {"K1": 0 if push else solve,
+                        "K2": (solve + 1 if push else 0) + ppr_l, "K3": 0}
+            got = {"K1": sum(k1.launches.values()),
+                   "K2": sum(k2.launches.values()),
+                   "K3": sum(k3.launches.values())}
+            check(got == want, f"{backend} tick {tick} ({info.strategy}, "
+                  f"{info.iters} sweeps, {misses} misses): launches {got}, "
+                  f"want {want}")
+            for q in queries:
+                check(q.result is not None
+                      and np.all(np.isfinite(q.result[1])),
+                      f"{backend} tick {tick}: query {q.uid} not served")
+            cur = apply_delta(cur[0], cur[1], delta, N_NODES)
+            ticks.append({"strategy": info.strategy, "sweeps": info.iters,
+                          "coerced_from": info.coerced_from,
+                          "misses": misses, **got})
+        scratch = PageRankEngine(cur[0], cur[1], N_NODES, d=DAMPING,
+                                 backend="dense", device=dev,
+                                 metrics=NullRegistry())
+        l1 = float(torch.sum(torch.abs(dyn.ranks - scratch.run(300))))
+        check(l1 <= 1e-5, f"{backend}: L1(incremental, from scratch) "
+              f"{l1:.3e} > 1e-5")
+        entries = list(cache._entries.items())
+        exact = scratch.ppr([list(k[1]) for k, _ in entries],
+                            n_iters=300).cpu().numpy()
+        worst = max(float(np.abs(e.ranks - exact[:, j]).sum())
+                    for j, (_, e) in enumerate(entries))
+        # the gate of examples/streaming_pagerank.py's cache mode
+        check(worst <= 1e-4, f"{backend}: a cached answer is {worst:.3e} "
+              "from the exact solve of the final graph (L1)")
+        upd = reg.histogram("span.update")
+        strategies = {s: sum(t["strategy"] == s for t in ticks)
+                      for s in ("push", "warm", "rebuild")}
+        live[backend] = {
+            "strategies": strategies,
+            "sweeps": [t["sweeps"] for t in ticks],
+            "update_p50_ms": upd.quantile(0.50),
+            "update_p95_ms": upd.quantile(0.95),
+            "flush_p50_ms": reg.histogram("serve.batch_ms").quantile(0.50),
+            "flush_p95_ms": reg.histogram("serve.batch_ms").quantile(0.95),
+            "l1_vs_scratch": l1, "cached_l1_max": worst,
+            "cached_entries": len(entries), "cache_hits": cache.hits,
+            "invalidations": cache.invalidations,
+            "launches": {k: sum(t[k] for t in ticks)
+                         for k in ("K1", "K2", "K3")},
+            "edges": int(dyn.n_edges), "layout": dyn.layout,
+            "phase_s": time.perf_counter() - t_live}
+        print(f"  {backend}: strategies {strategies} (sweeps "
+              f"{live[backend]['sweeps']}); update p50 "
+              f"{live[backend]['update_p50_ms']:.3f} ms, p95 "
+              f"{live[backend]['update_p95_ms']:.3f} ms on {card}; flush "
+              f"p50 {live[backend]['flush_p50_ms']:.3f} ms; L1 vs scratch "
+              f"{l1:.3e}; {len(entries)} cached answers, worst L1 vs exact "
+              f"{worst:.3e}; {cache.hits} hits, {cache.invalidations} "
+              f"invalidated; launches {live[backend]['launches']}")
+
     # ---------------------------------------------------------------- 4 --
     print(f"times on {card} (CUDA events, medians of CUDA-graph replays; "
           "'flushed': one call after a 256 MiB write evicts the L2, "
@@ -716,14 +1045,128 @@ def main() -> int:
                   + ("" if library_ms is None else
                      f"; X @ W.T (TF32 off) {library_ms * 1e3:.2f} us "
                      "flushed"))
+    for p in PRECISIONS:
+        bsr = bsr_engines[p].operands[0]
+        blocks, cols = bsr.blocks, bsr.block_cols
+        nb_r, mb, bs, _ = blocks.shape
+        Mp, Np = -(-N_NODES // bs) * bs, nb_r * bs
+        # the blocks this run's data needs: the stored non-padding ones
+        real = (blocks != 0).flatten(2).any(dim=2)            # (nb_r, mb)
+        nnzb = int(real.sum())
+        sparse = None
+        if p == "f32":
+            counts = real.sum(dim=1)
+            crow = torch.zeros(nb_r + 1, dtype=torch.int64, device=dev)
+            crow[1:] = torch.cumsum(counts, 0)
+            try:
+                sparse = torch.sparse_bsr_tensor(
+                    crow, cols[real].long(), blocks[real], size=(Np, Mp))
+            except (RuntimeError, TypeError) as exc:
+                print(f"  torch.sparse_bsr_tensor: not available ({exc})")
+        for B in (1, SERVE_BATCH, N_HUBS):
+            Xh = np.zeros((B, Mp), np.float32)
+            Xh[:, :N_NODES] = rng.dirichlet(np.ones(N_NODES), size=B)
+            X = torch.from_numpy(Xh).to(dev)
+            XT = X.T.contiguous()
+
+            def kernel():
+                k3.bsr_spmv(blocks, cols, X)
+
+            def plain():
+                bsr_spmv_ref(blocks, cols, X)
+
+            ms = cuda_ms_cold(torch, kernel, flush)
+            warm_ms = cuda_ms(torch, kernel)
+            call_ms = eager_ms(torch, kernel)
+            plain_ms = cuda_ms_cold(torch, plain, flush)
+            library_ms, library_note = None, None
+            if sparse is not None:
+                try:
+                    library_ms = cuda_ms_cold(torch, lambda: sparse @ XT,
+                                              flush)
+                except (RuntimeError, NotImplementedError) as exc:
+                    library_note = f"sparse BSR @ dense failed: {exc}"
+                    print(f"  K3 library call: {library_note}")
+            nbytes = (nnzb * bs * bs * blocks.element_size()
+                      + 4 * cols.numel() + 4 * B * (Mp + Np))
+            ops_n = 2 * B * nnzb * bs * bs
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops_n / F32_OPS_PER_S * 1e3
+            bound = max(bytes_ms, ops_ms)
+            by = "bytes" if bytes_ms >= ops_ms else "operations"
+            rows.append({
+                "name": f"bsr_spmv[{p},B={B}]", "route": "cuda",
+                "source": K3_SOURCE, "replaces": K3_REPLACES,
+                "launches": bsr_launches[p],
+                "max_abs_err": k3_err[(p, B)], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": library_ms, "ms_warm_l2": warm_ms,
+                "ms_eager_call": call_ms, "shape": list(blocks.shape),
+                "nonzero_blocks": nnzb, "batch": B, "bytes": nbytes,
+                "operations": ops_n, "library_note": library_note})
+            print(f"  K3 {p} B={B}: {ms * 1e3:.2f} us flushed, "
+                  f"{warm_ms * 1e3:.2f} us warm, {call_ms * 1e3:.2f} us per "
+                  f"eager call; bound {bound * 1e3:.2f} us by {by} "
+                  f"({nnzb} of {nb_r * mb} blocks, {nbytes} bytes, {ops_n} "
+                  f"float32 operations); plain {plain_ms * 1e3:.2f} us "
+                  "flushed"
+                  + ("" if library_ms is None else
+                     f"; sparse BSR @ X (cuSPARSE) {library_ms * 1e3:.2f} "
+                     "us flushed"))
+    xv = pr["dense"].contiguous()
+    tt = torch.tensor(0.15 / N_NODES, device=dev)
+    for p in K4_PRECISIONS:
+        # the dense tier's (N, N) H at each precision, as the loops of
+        # phase 3d ran it
+        Hs = dense_at[p].operands[0]
+
+        def kernel():
+            k1.pagerank_step(Hs, xv, tt, d=DAMPING)
+
+        def plain():
+            pagerank_step_ref(Hs, xv, tt, d=DAMPING)
+
+        ms = cuda_ms_cold(torch, kernel, flush)
+        warm_ms = cuda_ms(torch, kernel)
+        call_ms = eager_ms(torch, kernel)
+        plain_ms = cuda_ms_cold(torch, plain, flush)
+        library_ms = None
+        if p == "f32":
+            tvec = tt.expand(N_NODES).contiguous()
+            library_ms = cuda_ms_cold(torch, lambda: torch.addmv(
+                tvec, Hs, xv, alpha=DAMPING), flush)
+        nbytes = Hs.numel() * Hs.element_size() + 4 * (2 * N_NODES + 1)
+        ops_n = 2 * N_NODES * N_NODES + 2 * N_NODES
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops_n / F32_OPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        by = "bytes" if bytes_ms >= ops_ms else "operations"
+        rows.append({
+            "name": f"pagerank_step[{p}]", "route": "cuda",
+            "source": K4_SOURCE, "replaces": K4_REPLACES,
+            "launches": k4_launches[p], "max_abs_err": k4_err[p], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms, "ms_warm_l2": warm_ms,
+            "ms_eager_call": call_ms, "shape": [N_NODES, N_NODES],
+            "bytes": nbytes})
+        print(f"  K4 {p}: {ms * 1e3:.2f} us flushed, {warm_ms * 1e3:.2f} us "
+              f"warm, {call_ms * 1e3:.2f} us per eager call; bound "
+              f"{bound * 1e3:.2f} us by {by} ({nbytes} bytes); plain "
+              f"{plain_ms * 1e3:.2f} us flushed"
+              + ("" if library_ms is None
+                 else f"; torch.addmv {library_ms * 1e3:.2f} us flushed"))
     del flush
 
     tiers = {"dense": dense, "ell": ell, "fused_dense": fused}
     tiers.update({f"fused_dense[{p}]": engines[p] for p in PRECISIONS[1:]})
+    tiers.update({"bsr" if p == "f32" else f"bsr[{p}]": bsr_engines[p]
+                  for p in PRECISIONS})
     run_ms = {name: wall_ms(torch, lambda e=e: e.run(N_ITERS))
               for name, e in tiers.items()}
+    iters.update({"bsr": bsr_iters["f32"]})
     tol_ms = {b: wall_ms(torch, lambda e=e: e.run_tol(tol=1e-6))
-              for b, e in (("dense", dense), ("fused_dense", fused))}
+              for b, e in (("dense", dense), ("fused_dense", fused),
+                           ("bsr", bsr_engines["f32"]))}
     for name, v in run_ms.items():
         print(f"  run({N_ITERS}) {name}: {v:.3f} ms")
     for name, v in tol_ms.items():
@@ -748,7 +1191,13 @@ def main() -> int:
 
     print(json.dumps({"run_ms": run_ms, "run_tol_ms": tol_ms,
                       "run_tol_iters": iters, "build_s": built["seconds"],
-                      "main_path_s": main_s, "serve": serve_stats}))
+                      "main_path_s": main_s, "serve": serve_stats,
+                      "bsr": {"max_abs_diff_vs_dense": bsr_err,
+                              "k3_launches": bsr_launches,
+                              "phase_s": bsr_s},
+                      "ops_loop": {"max_abs_diff": e_ops,
+                                   "k4_launches": k4_launches},
+                      "live": live}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,13 @@
 from repro_torch.graph.generators import (barabasi_albert, erdos_renyi,
                                           protein_network)
-from repro_torch.graph.sparse import CSRMatrix
-from repro_torch.graph.transition import (build_transition_csr,
+from repro_torch.graph.sparse import BSRMatrix, CSRMatrix, ELLMatrix
+from repro_torch.graph.transition import (build_transition_bsr,
+                                          build_transition_csr,
                                           build_transition_dense,
+                                          build_transition_ell,
                                           dangling_fix, dangling_mask)
 
 __all__ = ["barabasi_albert", "erdos_renyi", "protein_network",
-           "CSRMatrix", "build_transition_csr", "build_transition_dense",
-           "dangling_fix", "dangling_mask"]
+           "CSRMatrix", "ELLMatrix", "BSRMatrix", "build_transition_csr",
+           "build_transition_dense", "build_transition_ell",
+           "build_transition_bsr", "dangling_fix", "dangling_mask"]

@@ -11,11 +11,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.graph.sparse import CSRMatrix
+from repro_torch.graph.sparse import BSRMatrix, CSRMatrix, ELLMatrix
 from repro_torch.kernels.common import resolve_device
 
 __all__ = ["dangling_fix", "transition_dense_np", "build_transition_dense",
-           "build_transition_csr", "dangling_mask"]
+           "build_transition_csr", "build_transition_ell",
+           "build_transition_bsr", "dangling_mask"]
 
 
 def dangling_fix(H: np.ndarray) -> np.ndarray:
@@ -58,6 +59,27 @@ def build_transition_csr(src: np.ndarray, dst: np.ndarray, n: int,
     outdeg = np.bincount(src, minlength=n).astype(np.float32)
     vals = 1.0 / outdeg[src]
     return CSRMatrix.from_coo(dst, src, vals, shape=(n, n), device=device)
+
+
+def build_transition_ell(src: np.ndarray, dst: np.ndarray, n: int,
+                         k: int | None = None,
+                         device: str | torch.device | None = None
+                         ) -> ELLMatrix:
+    return ELLMatrix.from_csr(
+        build_transition_csr(src, dst, n, device=device), k=k)
+
+
+def build_transition_bsr(src: np.ndarray, dst: np.ndarray, n: int,
+                         bs: int = 128, max_blocks: int | None = None,
+                         device: str | torch.device | None = None
+                         ) -> BSRMatrix:
+    """Block-sparse H, dangling-UNFIXED (the ``bsr`` tier pays the leak
+    explicitly)."""
+    outdeg = np.bincount(src, minlength=n).astype(np.float32)
+    A = np.zeros((n, n), np.float32)
+    A[dst, src] = 1.0 / outdeg[src]
+    return BSRMatrix.from_dense(A, bs=bs, max_blocks=max_blocks,
+                                device=device)
 
 
 def dangling_mask(src: np.ndarray, n: int) -> np.ndarray:

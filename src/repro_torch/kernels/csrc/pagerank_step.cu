@@ -1,6 +1,7 @@
-// Fused PageRank step on the pre-padded dense layout, for Hopper (sm_90a).
+// PageRank steps for Hopper (sm_90a): the fused step on the pre-padded
+// dense layout (K1), and below it the unpadded step (K4).
 //
-// Replaces the TPU kernel src/repro/kernels/pagerank_step.py::_fused_kernel
+// K1 replaces the TPU kernel src/repro/kernels/pagerank_step.py::_fused_kernel
 // (reached through pagerank_step_fused).  It computes, for a (Np, Mp) H
 // stored as float32, bfloat16, float16 or int8 (with per-row float32
 // scales s):
@@ -39,11 +40,34 @@
 //   * t is read through a device pointer, so the caller keeps it on the
 //     device across iterations with no host sync.
 // The padded tail (zero rows of H, zero dang) gets y = t, as on the TPU.
+//
+// The unpadded step (K4), beside it in this file.
+//
+// Replaces the TPU kernel src/repro/kernels/pagerank_step.py::_kernel
+// (reached through pagerank_step, behind ops.pagerank_iteration).  For an
+// (N, M) H of any shape, stored as float32, bfloat16, float16 or int8, it
+// computes y = d * (H @ x) + t into y (N,) float32, with no leak output.
+// The TPU wrapper pads H to its tiles on every call; here nothing is
+// padded: a copy of H per call would move more bytes than the step itself
+// (100 MB at N = 5000 in float32).
+//
+// Bound.  The bytes of H, once (N * M * 1..4 bytes), as for K1: 100 MB,
+// 30 us at N = M = 5000 in float32 (data-sheet 3.35 TB/s).
+//
+// Design.  The row layout of the streaming matvec (K2, csrc/
+// streaming_matvec.cu) at one query, with K1's affine epilogue and t read
+// through a device pointer; the loads come from the shared vec4.cuh:
+//   * A CTA of 2 warps owns 8 rows; a warp covers 4 rows x 32 columns per
+//     step (lane = row group lane >> 3, column group lane & 7).  When M is
+//     a multiple of 4 and H and x are aligned to 4 elements, each lane
+//     loads 4 consecutive elements of H per step (16, 8 or 4 bytes by
+//     type) and a float4 of x that the 4 row groups share; otherwise each
+//     lane loads one element per step.  Rows past N are masked.
+//   * Each lane sums its columns in increasing order, the 8 lanes of a row
+//     in a fixed butterfly (no atomics: repeats are bit-identical); then
+//     y = d * acc + t, rounded step by step as the plain version.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "vec4.cuh"
 
 namespace {
 
@@ -212,6 +236,58 @@ void launch_step(const void* H, const float* x, const float* dang,
   }
 }
 
+constexpr int kStepThreads = 64;  // K4: 2 warps, 8 rows per CTA
+constexpr int kStepRows = kStepThreads / 32 * 4;
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kStepThreads)
+step_kernel(const T* __restrict__ H, const float* __restrict__ x,
+            const float* __restrict__ t_ptr, float* __restrict__ y, int N,
+            int M, float d) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int cg = lane & 7;  // column group
+  const int row = blockIdx.x * kStepRows + warp * 4 + (lane >> 3);
+  const bool ok = row < N;
+  const T* h = H + static_cast<size_t>(ok ? row : 0) * M;
+  float acc = 0.f;
+  if (kVec) {
+#pragma unroll 4
+    for (int c = cg * 4; c < M; c += 32) {
+      const float4 w = Vec4<T>::up(Vec4<T>::load(h + c));
+      const float4 xv = __ldg(reinterpret_cast<const float4*>(x + c));
+      acc = fmaf(w.x, xv.x, acc);
+      acc = fmaf(w.y, xv.y, acc);
+      acc = fmaf(w.z, xv.z, acc);
+      acc = fmaf(w.w, xv.w, acc);
+    }
+  } else {
+#pragma unroll 4
+    for (int c = cg; c < M; c += 8)
+      acc = fmaf(Scalar<T>::load(h + c), __ldg(x + c), acc);
+  }
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (cg == 0 && ok) y[row] = __fadd_rn(__fmul_rn(d, acc), __ldg(t_ptr));
+}
+
+template <typename T>
+cudaError_t launch_unpadded(const void* H, const float* x, const float* t,
+                            float* y, int N, int M, float d, bool vec,
+                            cudaStream_t stream) {
+  const dim3 grid((N + kStepRows - 1) / kStepRows);
+  const T* h = static_cast<const T*>(H);
+  if (vec) {
+    step_kernel<T, true><<<grid, kStepThreads, 0, stream>>>(h, x, t, y, N,
+                                                            M, d);
+  } else {
+    step_kernel<T, false><<<grid, kStepThreads, 0, stream>>>(h, x, t, y, N,
+                                                             M, d);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -257,6 +333,37 @@ int pagerank_step_fused_launch(int dtype, const void* H, const void* x,
   leak_reduce_kernel<<<1, kReduceThreads, 0, s>>>(
       pf, Np / kRowsPerBlock, static_cast<float*>(leak));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The unpadded step (K4): y = d * (H @ x) + t for H (N, M) row-major, x
+// (M,) float32, t one float32 on the device, y (N,) float32.  ``vec``
+// selects the 4-element loads: M a multiple of 4, H aligned to 4
+// elements and x to 16 bytes.  Returns the cudaError_t of the launch.
+int pagerank_step_launch(int dtype, const void* H, const void* x,
+                         const void* t, void* y, int N, int M, float d,
+                         int vec, void* stream) {
+  if (N <= 0 || M <= 0 || (vec && M % 4 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* xf = static_cast<const float*>(x);
+  const float* tf = static_cast<const float*>(t);
+  float* yf = static_cast<float*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(
+          launch_unpadded<float>(H, xf, tf, yf, N, M, d, vec, s));
+    case 1:
+      return static_cast<int>(
+          launch_unpadded<__nv_bfloat16>(H, xf, tf, yf, N, M, d, vec, s));
+    case 2:
+      return static_cast<int>(
+          launch_unpadded<__half>(H, xf, tf, yf, N, M, d, vec, s));
+    case 3:
+      return static_cast<int>(
+          launch_unpadded<int8_t>(H, xf, tf, yf, N, M, d, vec, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -55,10 +55,7 @@
 // aligned to 4 elements and X to 16 bytes (the wrapper pads M otherwise;
 // every layout of the engine already is).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "vec4.cuh"
 
 namespace {
 
@@ -81,68 +78,6 @@ struct Shape {
   static constexpr int kSteps = kTile / kStep;
   // two tiles of X: one being read, one being filled
   static constexpr int kSmemBytes = 2 * QP * kTile * 4;
-};
-
-// Four consecutive elements of W: loaded as raw storage bits, upcast to
-// float32 only where they are used, so a prefetch does not wait on its
-// load.
-template <typename T>
-struct Vec4;
-
-template <>
-struct Vec4<float> {
-  using Raw = float4;
-  __device__ __forceinline__ static Raw load(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-  __device__ __forceinline__ static float4 up(Raw q) { return q; }
-};
-
-template <>
-struct Vec4<__nv_bfloat16> {
-  using Raw = uint2;
-  __device__ __forceinline__ static Raw load(const __nv_bfloat16* p) {
-    return __ldg(reinterpret_cast<const uint2*>(p));
-  }
-  __device__ __forceinline__ static float4 up(Raw q) {
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&q.x));
-    const float2 b = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&q.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-};
-
-template <>
-struct Vec4<__half> {
-  using Raw = uint2;
-  __device__ __forceinline__ static Raw load(const __half* p) {
-    return __ldg(reinterpret_cast<const uint2*>(p));
-  }
-  __device__ __forceinline__ static float4 up(Raw q) {
-    const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&q.x));
-    const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&q.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-};
-
-// int8 upcast without the conversion unit: flip the sign bit of each byte
-// (v + 128, an unsigned byte u), place u in the low mantissa bits of 2^23
-// (a byte permute), and subtract 2^23 + 128.  Exact for every byte.
-template <>
-struct Vec4<int8_t> {
-  using Raw = unsigned;
-  __device__ __forceinline__ static Raw load(const int8_t* p) {
-    return __ldg(reinterpret_cast<const unsigned*>(p));
-  }
-  __device__ __forceinline__ static float byte(unsigned u, unsigned sel) {
-    return __uint_as_float(__byte_perm(u, 0x4B000000u, sel)) - 8388736.f;
-  }
-  __device__ __forceinline__ static float4 up(Raw q) {
-    const unsigned u = q ^ 0x80808080u;
-    return make_float4(byte(u, 0x7650), byte(u, 0x7651), byte(u, 0x7652),
-                       byte(u, 0x7653));
-  }
 };
 
 // 16-byte asynchronous copy global -> shared; zero-fills when !pred.

@@ -1,15 +1,22 @@
-"""Fused PageRank iteration: y = d * (H @ x) + t in one pass, plus the
-dangling leak of the new rank vector.
+"""PageRank iterations: y = d * (H @ x) + t in one pass over H.
 
-:func:`pagerank_step_fused` is the engine's hot-loop kernel on the
-**pre-padded** layout (:func:`pad_pagerank_operands` pads once per graph).
-On CUDA tensors it launches the hand-written Hopper kernel in
-``csrc/pagerank_step.cu``; on CPU tensors it runs the plain version
-:func:`repro_torch.kernels.ref.pagerank_step_fused_ref`.  A CUDA input
-either launches the kernel or raises — there is no fallback.
+Two entry points, both hand-written Hopper kernels in
+``csrc/pagerank_step.cu``:
 
-``launches`` counts kernel launches per storage dtype; only the CUDA path
-adds to it, once per launch.
+* :func:`pagerank_step_fused` (K1) — the engine's hot-loop kernel on the
+  **pre-padded** layout (:func:`pad_pagerank_operands` pads once per
+  graph); it also returns the dangling leak of the new rank vector.
+* :func:`pagerank_step` (K4) — the unpadded convenience step behind
+  ``ops.pagerank_iteration``: any (N, M) H, no leak output, and nothing
+  padded or copied per call.
+
+On CUDA tensors each launches its kernel; on CPU tensors each runs its
+plain version (:func:`repro_torch.kernels.ref.pagerank_step_fused_ref`,
+:func:`repro_torch.kernels.ref.pagerank_step_ref`).  A CUDA input either
+launches the kernel or raises — there is no fallback.
+
+``launches`` (K1) and ``step_launches`` (K4) count kernel launches per
+storage dtype; only the CUDA path adds to them, once per launch.
 """
 from __future__ import annotations
 
@@ -18,10 +25,11 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ref import pagerank_step_fused_ref
+from repro_torch.kernels.ref import (pagerank_step_fused_ref,
+                                     pagerank_step_ref)
 
-__all__ = ["pagerank_step_fused", "pad_pagerank_operands", "launches",
-           "reset_launches"]
+__all__ = ["pagerank_step_fused", "pagerank_step", "pad_pagerank_operands",
+           "launches", "step_launches", "reset_launches"]
 
 _DTYPES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"),
            torch.float16: (2, "f16"), torch.int8: (3, "int8")}
@@ -32,13 +40,16 @@ ROWS_PER_CTA = 8
 PAD = 256
 
 launches = {name: 0 for _, name in _DTYPES.values()}
+step_launches = {name: 0 for _, name in _DTYPES.values()}
 
 _lib = None
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    """Zero both counts (K1's ``launches`` and K4's ``step_launches``)."""
+    for counts in (launches, step_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def _library():
@@ -50,6 +61,11 @@ def _library():
             ctypes.c_int] + [ctypes.c_void_p] * 8 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         lib.pagerank_step_fused_launch.restype = ctypes.c_int
+        lib.pagerank_step_launch.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 4
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+               ctypes.c_void_p])
+        lib.pagerank_step_launch.restype = ctypes.c_int
         lib.pagerank_step_fused_rows_per_block.argtypes = []
         lib.pagerank_step_fused_rows_per_block.restype = ctypes.c_int
         rows = lib.pagerank_step_fused_rows_per_block()
@@ -63,6 +79,11 @@ def _library():
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"pagerank_step_fused: {msg}")
+
+
+def _check_step(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"pagerank_step: {msg}")
 
 
 def pagerank_step_fused(Hp: torch.Tensor, xp: torch.Tensor,
@@ -123,6 +144,52 @@ def pagerank_step_fused(Hp: torch.Tensor, xp: torch.Tensor,
             f"pagerank_step_fused launch failed: cudaError_t {err}")
     launches[name] += 1
     return yp, leak
+
+
+def pagerank_step(H: torch.Tensor, pr: torch.Tensor, t, *,
+                  d: float = 0.85) -> torch.Tensor:
+    """One unpadded iteration: ``d * (H @ pr) + t`` as an (N,) float32
+    tensor.
+
+    ``H``: (N, M) float32, bfloat16, float16 or int8, contiguous; ``pr``:
+    (M,) float32; ``t``: the float32 teleport-plus-leak scalar (a 0-dim or
+    1-element tensor, kept on the device; a Python number is placed
+    there).  Any N and M are taken: when M is a multiple of 4 and H is
+    aligned to 4 elements the kernel loads 4 elements per lane and step,
+    otherwise one; H is never padded or copied.
+    """
+    _check_step(H.dim() == 2 and pr.dim() == 1 and pr.shape[0] == H.shape[1],
+           f"H {tuple(H.shape)} and pr {tuple(pr.shape)} must be (N, M) "
+           "and (M,)")
+    if not isinstance(t, torch.Tensor):
+        # a fill on the device: no host-to-device copy, no sync
+        t = torch.full((), float(t), dtype=torch.float32, device=H.device)
+    if all(a.device.type == "cpu" for a in (H, pr, t)):
+        return pagerank_step_ref(H, pr, t.reshape(()), d=d)
+
+    dev = H.device
+    _check_step(dev.type == "cuda" and pr.device == dev and t.device == dev,
+           "all tensors must be on one CUDA device")
+    _check_step(H.dtype in _DTYPES, f"unsupported storage dtype {H.dtype}")
+    _check_step(pr.dtype == torch.float32 and t.dtype == torch.float32,
+           "pr and t must be float32")
+    _check_step(t.numel() == 1, "t must hold one value")
+    _check_step(H.is_contiguous(), "H must be contiguous")
+    N, M = H.shape
+    _check_step(N > 0 and M > 0, "empty operand")
+    pr, t = pr.contiguous(), t.contiguous()
+    vec = (M % 4 == 0 and H.data_ptr() % (4 * H.element_size()) == 0
+           and pr.data_ptr() % 16 == 0)
+    lib = _library()
+    code, name = _DTYPES[H.dtype]
+    y = torch.empty((N,), dtype=torch.float32, device=dev)
+    err = lib.pagerank_step_launch(
+        code, H.data_ptr(), pr.data_ptr(), t.data_ptr(), y.data_ptr(), N, M,
+        float(d), int(vec), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pagerank_step launch failed: cudaError_t {err}")
+    step_launches[name] += 1
+    return y
 
 
 def pad_pagerank_operands(H: torch.Tensor, dangling=None

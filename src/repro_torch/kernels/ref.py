@@ -12,13 +12,30 @@ import torch
 
 from repro_torch.kernels.common import upcast_f32
 
-__all__ = ["streaming_matvec_ref", "pagerank_step_ref",
+__all__ = ["streaming_matvec_ref", "bsr_spmv_ref", "pagerank_step_ref",
            "pagerank_step_fused_ref"]
 
 
 def streaming_matvec_ref(W: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """Y = X @ W^T, f32 accumulation."""
     return upcast_f32(X) @ upcast_f32(W).T
+
+
+def bsr_spmv_ref(blocks: torch.Tensor, block_cols: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """BSR matvec ``y = H_bsr @ x`` over zero-padded blocks: ``x`` (m,)
+    gives (nb_r * bs,); a query batch ``X`` (B, m), one query per row,
+    gives (B, nb_r * bs).  ``x`` is zero-padded to a multiple of the block
+    size; padded slots (zero blocks at block column 0) contribute 0."""
+    nb_r, mb, bs, _ = blocks.shape
+    X = x[None, :] if x.dim() == 1 else x
+    if X.shape[1] % bs:
+        X = torch.nn.functional.pad(X, (0, bs - X.shape[1] % bs))
+    xb = X.reshape(X.shape[0], -1, bs)
+    gathered = xb[:, block_cols.long()]              # (B, nb_r, mb, bs)
+    y = torch.einsum("rbij,qrbj->qri", upcast_f32(blocks),
+                     upcast_f32(gathered)).reshape(X.shape[0], nb_r * bs)
+    return y[0] if x.dim() == 1 else y
 
 
 def pagerank_step_ref(H: torch.Tensor, pr: torch.Tensor, t,

@@ -2,14 +2,17 @@
 single-device tiers, one front door.
 
 Every tier goes through :class:`~repro_torch.pagerank.engine
-.PageRankEngine` (layout prepared once): the dense reference tier, the
-split-ELL tier, and the fused-kernel tier at the chosen storage
-precision.  Prints each tier's max|diff| against dense, its ``run`` wall
-time, and the top-k proteins.
+.PageRankEngine` (layout prepared once): the dense reference tier and the
+tiers named by ``--backend`` (by default the split-ELL tier and the
+fused-kernel tier; ``bsr`` is the block-sparse tier on its kernel), the
+fused and ``bsr`` tiers at the chosen storage precision.  Prints each
+tier's max|diff| against dense, its ``run`` wall time, and the top-k
+proteins; a float32 tier that disagrees with dense fails the run.
 
 Usage (on the card; ``--device cpu`` runs the plain versions on the CPU):
     python -m repro_torch.launch.pagerank_run --nodes 5000 --iters 100
     python -m repro_torch.launch.pagerank_run --precision bf16
+    python -m repro_torch.launch.pagerank_run --backend bsr
 """
 from __future__ import annotations
 
@@ -51,7 +54,12 @@ def run(argv=None):
     ap.add_argument("--seed", type=int, default=pagerank_cfg().seed)
     ap.add_argument("--top-k", type=int, default=10)
     ap.add_argument("--precision", choices=PRECISIONS, default="f32",
-                    help="storage precision of the fused tier's layout")
+                    help="storage precision of the fused and bsr tiers' "
+                    "layouts")
+    ap.add_argument("--backend", action="append",
+                    choices=("ell", "bsr", "fused_dense"),
+                    help="a tier to run beside dense (repeatable; default: "
+                    "ell and fused_dense)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
@@ -71,17 +79,15 @@ def run(argv=None):
                                device=device)
     results["engine_dense"], pr_dense = _time_engine(eng_dense, iters)
 
-    prs = {}
-    for backend, precision in (("ell", "f32"),
-                               ("fused_dense", args.precision)):
+    for backend in args.backend or ("ell", "fused_dense"):
+        precision = "f32" if backend == "ell" else args.precision
         eng = PageRankEngine(src, dst, n, d=d, backend=backend,
                              precision=precision, device=device)
-        results[f"engine_{eng.layout}"], prs[backend] = _time_engine(eng,
-                                                                     iters)
-        err = float(torch.max(torch.abs(prs[backend] - pr_dense)))
+        results[f"engine_{eng.layout}"], pr = _time_engine(eng, iters)
+        err = float(torch.max(torch.abs(pr - pr_dense)))
         print(f"  engine[{eng.layout}] vs dense: max|diff|={err:.2e}")
-
-    torch.testing.assert_close(pr_dense, prs["ell"], rtol=1e-3, atol=1e-7)
+        if precision == "f32":
+            torch.testing.assert_close(pr_dense, pr, rtol=1e-3, atol=1e-7)
 
     idx, scores = top_k_proteins(pr_dense, k=args.top_k)
     print(f"\ntop-{args.top_k} proteins: "

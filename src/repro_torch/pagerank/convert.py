@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.graph.sparse import BSRMatrix
 from repro_torch.kernels.common import resolve_device
 from repro_torch.pagerank.engine import BACKENDS
 from repro_torch.pagerank.precision import STORAGE_DTYPES, resolve_precision
@@ -26,8 +27,10 @@ __all__ = ["layout_from_numpy"]
 # positions of the value arrays (stored in the precision's dtype) in each
 # backend's operand tuple; the other positions are int32 indices, the
 # dangling mask, or the float32 int8 scales
-_VALUE_SLOTS = {"dense": (0,), "ell": (0, 4), "fused_dense": (0,)}
-_N_OPERANDS = {"dense": (1, 2), "ell": (5, 6), "fused_dense": (2, 2)}
+_VALUE_SLOTS = {"dense": (0,), "ell": (0, 4), "bsr": (0,),
+                "fused_dense": (0,)}
+_N_OPERANDS = {"dense": (1, 2), "ell": (5, 6), "bsr": (2, 3),
+               "fused_dense": (2, 2)}
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -48,7 +51,10 @@ def layout_from_numpy(backend: str, arrays: dict, *, precision: str,
     Returns the first three as tensors on ``device``, value arrays in the
     precision's storage dtype, and the bookkeeping as int64 numpy arrays
     (``None`` where not given).  int8 layouts of ``dense`` and ``ell``
-    carry their scales as the last operand, as in the JAX package."""
+    carry their scales as the last operand, as in the JAX package.  For
+    ``bsr`` the operands are the container's arrays in its pytree order
+    (``blocks``, ``block_cols``, and ``row_scales`` for int8), and the
+    returned operands hold one :class:`BSRMatrix`."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     precision = resolve_precision(precision)
@@ -69,9 +75,15 @@ def layout_from_numpy(backend: str, arrays: dict, *, precision: str,
     if backend == "fused_dense" and (scales is not None) != (
             precision == "int8"):
         raise ValueError("the fused tier takes scales exactly for int8")
+    dang = _tensor(arrays["dang"], dev).to(torch.float32)
+    if backend == "bsr":
+        n = dang.shape[0]
+        tensors = (BSRMatrix(tensors[0], tensors[1], shape=(n, n),
+                             row_scales=(tensors[2] if len(tensors) == 3
+                                         else None)),)
     book = {k: None if arrays.get(k) is None
             else np.array(arrays[k], np.int64, copy=True)
             for k in ("keys", "outdeg", "indeg")}
     return {"operands": tensors,
             "scales": None if scales is None else _tensor(scales, dev),
-            "dang": _tensor(arrays["dang"], dev).to(torch.float32), **book}
+            "dang": dang, **book}

@@ -8,6 +8,12 @@ single-device tiers:
 * ``"ell"``         — split ELLPACK: a tight per-row budget (``ell_k``,
   default the 90th degree percentile) plus a COO overflow tail for hub
   rows.
+* ``"bsr"``         — block-sparse rows (``bsr_block_size`` blocks, 128 by
+  default), H stored dangling-unfixed with the explicit leak; every
+  product is one launch of the hand-written BSR kernel
+  (:func:`repro_torch.kernels.bsr_spmv.bsr_spmv`, through
+  :func:`repro_torch.kernels.ops.spmv`), for one vector or for all the
+  queries of a PPR iteration or push sweep.
 * ``"fused_dense"`` — the pre-padded dense layout through the hand-written
   fused kernel (:func:`repro_torch.kernels.pagerank_step
   .pagerank_step_fused`), which emits the dangling leak of the new rank
@@ -36,6 +42,8 @@ import torch.nn.functional as F
 
 from repro_torch.graph import delta as delta_mod
 from repro_torch.graph import transition as tr
+from repro_torch.graph.sparse import BSRMatrix
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.common import resolve_device, upcast_f32
 from repro_torch.kernels.pagerank_step import (pad_pagerank_operands,
                                                pagerank_step_fused)
@@ -54,7 +62,7 @@ from repro_torch.pagerank.steps import (ppr_step_batched, seed_matrix,
 
 __all__ = ["PageRankEngine", "select_backend", "BACKENDS", "PRECISIONS"]
 
-BACKENDS = ("dense", "ell", "fused_dense")
+BACKENDS = ("dense", "ell", "bsr", "fused_dense")
 
 # auto-selection thresholds on nnz / n^2, as in the JAX package; on CUDA
 # they still wait for a measurement on the card
@@ -68,8 +76,10 @@ def select_backend(n: int, density: float,
 
     ``device`` defaults to ``"cuda"``.  Dense graphs take the fused kernel
     on CUDA and the ``dense`` tier elsewhere; everything else takes
-    ``ell`` (the JAX package's TPU-only ``bsr`` choice maps to ``ell``
-    until BSR is ported).  ``precision`` is validated but never alters the
+    ``ell``.  The JAX package picks its ``bsr`` tier on a TPU for very
+    sparse graphs; the port has that tier (``backend="bsr"``), but on CUDA
+    the auto policy keeps ``ell`` until a density sweep on the card sets
+    the thresholds.  ``precision`` is validated but never alters the
     choice: reduced precision is an explicit accuracy trade, never an
     auto-policy pick.
     """
@@ -119,10 +129,12 @@ def _row_scale(y: torch.Tensor, scales: torch.Tensor | None) -> torch.Tensor:
 
 
 def _matvec(backend: str, operands, x: torch.Tensor) -> torch.Tensor:
-    """y = H @ x on the prepared layout, for a vector x (n,) or a query
-    block x (n, Q).  Value arrays may be stored in a reduced dtype; they
-    are upcast at the multiply and accumulated in f32.  int8 layouts
-    append their per-row f32 scales to the operand tuple."""
+    """y = H @ x on the prepared layout (tagged by ``backend``, the
+    engine's ``_mv_backend``), for a vector x (n,) or a query block x
+    (n, Q).  Value arrays may be stored in a reduced dtype; they are
+    upcast at the multiply and accumulated in f32.  int8 layouts append
+    their per-row f32 scales to the operand tuple (``bsr``: the
+    container's ``row_scales``)."""
     if backend == "dense":
         scales = operands[1] if len(operands) == 2 else None
         return _row_scale(upcast_f32(operands[0]) @ x, scales)
@@ -138,6 +150,25 @@ def _matvec(backend: str, operands, x: torch.Tensor) -> torch.Tensor:
             tail = torch.zeros_like(y).index_add_(
                 0, ov_r, ov_v[:, None] * x[ov_c])
         return _row_scale(y + tail, scales)
+    if backend == "sell":
+        # two-bucket sliced ELLPACK (the dynamic engine's patchable ELL
+        # tier, repro_torch.pagerank.dynamic): rows permuted into a low
+        # tier and a hub tier, two dense gathers, no index_add_
+        dl, il, dh, ih, inv = operands[:5]
+        sl, sh = operands[5:7] if len(operands) == 7 else (None, None)
+        dl, dh = upcast_f32(dl), upcast_f32(dh)
+        if x.dim() == 1:
+            yl = torch.sum(dl * x[il], dim=1)
+            yh = torch.sum(dh * x[ih], dim=1)
+        else:
+            yl = torch.sum(dl[..., None] * x[il], dim=1)
+            yh = torch.sum(dh[..., None] * x[ih], dim=1)
+        return torch.cat([_row_scale(yl, sl), _row_scale(yh, sh)],
+                         dim=0)[inv]
+    if backend == "bsr":
+        # one launch of the BSR kernel for a vector or a query block; the
+        # container's int8 row scales are applied after it
+        return kops.spmv(operands[0], x)
     raise ValueError(f"unknown backend {backend!r}")
 
 
@@ -265,7 +296,7 @@ class PageRankEngine:
 
     def __init__(self, src: np.ndarray, dst: np.ndarray, n: int, *,
                  d: float = 0.85, backend: str = "auto",
-                 ell_k: int | None = None,
+                 bsr_block_size: int = 128, ell_k: int | None = None,
                  device: str | torch.device | None = None, metrics=None,
                  precision: str = "auto"):
         dev = resolve_device(device)
@@ -283,6 +314,7 @@ class PageRankEngine:
             backend = select_backend(n, self.density, device=dev)
         self._init_common(n, d, backend, precision, dev, metrics)
         self._ell_k = ell_k
+        self._bsr_block_size = int(bsr_block_size)
         with self.metrics.span("prepare", backend=self.backend):
             self._prepare_layout(src, dst)
 
@@ -299,6 +331,10 @@ class PageRankEngine:
         self.storage_dtype = STORAGE_DTYPES[self.precision]
         self._scales = None
         self.layout = backend
+        # the layout tag the runners dispatch _matvec on: the backend
+        # itself, except the dynamic engine's patchable SELL tier ("sell"
+        # while backend == "ell")
+        self._mv_backend = backend
         # the last run_tol's SolveInfo and the warn-once latch for
         # silently exhausted solves
         self.last_solve_info = None
@@ -340,6 +376,9 @@ class PageRankEngine:
         n = self.n
         dang = tr.dangling_mask(src, n).astype(np.float32)
         self._dang = self._put(dang)
+        self._mv_backend = self.backend
+        self.layout = self.backend
+        self._scales = None
         if self.backend == "dense":
             if self.precision == "f32":
                 self._operands = (self._put(
@@ -361,6 +400,8 @@ class PageRankEngine:
             ops, k0, ov_nnz = _split_ell(src, dst, n, k0=self._ell_k)
             self.layout = f"ell(k0={k0})+overflow(nnz={ov_nnz})"
             self._operands = self._quantize_split_ell(ops)
+        elif self.backend == "bsr":
+            self._operands = (self._prepare_bsr(src, dst),)
         else:                                   # fused_dense
             H = torch.from_numpy(
                 tr.transition_dense_np(src, dst, n, fix_dangling=False))
@@ -379,6 +420,26 @@ class PageRankEngine:
         if self.precision != "f32":
             self.layout = f"{self.layout}[{self.precision}]"
         self._record_layout_bytes()
+
+    def _prepare_bsr(self, src: np.ndarray, dst: np.ndarray) -> BSRMatrix:
+        """The dangling-unfixed block layout in the storage dtype.  int8
+        scales are per row, the abs-max over the row's whole block budget
+        (slot and in-block column)."""
+        bsr = tr.build_transition_bsr(src, dst, self.n,
+                                      bs=self._bsr_block_size, device="cpu")
+        blocks = bsr.blocks.numpy()
+        cols = self._put(bsr.block_cols.numpy())
+        if self.precision == "int8":
+            nb_r, _, bs, _ = blocks.shape
+            # axis 2 is the row within a block: reduce over (slot, col)
+            absmax = np.abs(blocks).max(axis=(1, 3))        # (nb_r, bs)
+            scales = rowmax_scales(absmax.reshape(-1))      # (nb_r * bs,)
+            return BSRMatrix(
+                self._put(quantize_int8(blocks,
+                                        scales.reshape(nb_r, 1, bs, 1))),
+                cols, shape=bsr.shape, row_scales=self._put(scales))
+        return BSRMatrix(self._put(blocks).to(self.storage_dtype), cols,
+                         shape=bsr.shape)
 
     def _quantize_split_ell(self, ops: tuple) -> tuple:
         """Place a numpy split-ELL layout on the device in the storage
@@ -422,7 +483,8 @@ class PageRankEngine:
             return pagerank_dense_fixed(self._operands[0], n_iters=n_iters,
                                         d=self.d)
         return _run_fixed(self._operands, self._dang, self.d,
-                          backend=self.backend, n=self.n, n_iters=n_iters)
+                          backend=self._mv_backend, n=self.n,
+                          n_iters=n_iters)
 
     def run_tol(self, tol: float = 1e-6, max_iters: int = 1000,
                 x0: np.ndarray | torch.Tensor | None = None, *,
@@ -458,7 +520,7 @@ class PageRankEngine:
                                      x0=x0, watchdog=watchdog, trace=trace)
             else:
                 out = _run_tol(self._operands, self._dang, self.d, tol_f32,
-                               x0, backend=self.backend, n=self.n,
+                               x0, backend=self._mv_backend, n=self.n,
                                max_iters=max_iters, watchdog=watchdog,
                                trace=trace)
             return self._finish_solve(out, tol, max_iters, raise_on_fail)
@@ -484,7 +546,7 @@ class PageRankEngine:
             return _run_ppr_fused(Hp, dangp, self._put(Vp), self._scales,
                                   n=self.n, n_iters=n_iters, d=self.d)
         return _run_ppr(self._operands, self._dang, self._put(V), self.d,
-                        backend=self.backend, n_iters=n_iters)
+                        backend=self._mv_backend, n_iters=n_iters)
 
     def _finish_solve(self, out, tol: float, max_iters: int,
                       raise_on_fail: bool) -> SolveResult:

@@ -32,7 +32,7 @@ not met within ``max_pushes`` sweeps falls back to an exact batched
 On the card the hub columns and the answers come to the host once per
 build and once per answer (an explicit ``.cpu()``), never inside a loop.
 On ``fused_dense`` every push sweep is one launch of the streaming kernel
-for all (padded) queries.  The push runs in the port's chunked tolerance
+for all (padded) queries, on ``bsr`` one launch of the BSR kernel.  The push runs in the port's chunked tolerance
 loop (:mod:`repro_torch.obs.trace`): it stops at the same sweep as the
 JAX ``while_loop`` and issues at most ``CHUNK - 1`` masked sweeps after
 that, which change nothing.  The sharded tiers are not ported.
@@ -279,8 +279,10 @@ class LandmarkIndex:
                                   e._put(X0p), tol, n=e.n,
                                   max_pushes=max_pushes, d=e.d)
         else:
+            # the layout tag, not the backend: a dynamic ell engine pushes
+            # on its SELL layout
             out = _hub_push(e._operands, e._dang, e._put(V), e._put(X0),
-                            tol, backend=e.backend, n=e.n,
+                            tol, backend=e._mv_backend, n=e.n,
                             max_pushes=max_pushes, d=e.d)
         X, res_col, sweeps = (t.cpu() for t in out[:3])
         return X.numpy(), res_col.numpy(), int(sweeps)

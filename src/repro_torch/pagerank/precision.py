@@ -100,12 +100,15 @@ def _leaves(tree):
     elif isinstance(tree, (tuple, list)):
         for t in tree:
             yield from _leaves(t)
+    elif hasattr(tree, "tensors"):          # a container: BSRMatrix
+        yield from tree.tensors()
     elif tree is not None:
         raise TypeError(f"layout leaf of type {type(tree).__name__}")
 
 
 def layout_nbytes(operands) -> dict:
-    """Byte accounting of a prepared layout (a nest of tuples of tensors),
+    """Byte accounting of a prepared layout (a nest of tuples of tensors
+    and containers such as ``BSRMatrix``),
     split into *value* bytes (the matrix values — what precision tiers
     shrink — plus their float32 scales) and *index* bytes (integer
     column/row arrays other than int8, which no precision tier touches)."""

@@ -5,19 +5,22 @@
 NaN/Inf residuals and sustained residual growth abort the loop early
 instead of spinning to ``max_iters``, and :class:`SolveInfo` reports
 ``converged`` / ``diverged`` / ``nonfinite`` so callers can tell a good
-vector from a poisoned one.  The snapshot store, the refresher and the
-fault injector are not ported yet.
+vector from a poisoned one.  :class:`EngineSnapshot` is the host record
+the dynamic engine's ``snapshot`` / ``restore`` exchange.  The snapshot
+store, the refresher and the fault injector are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 __all__ = [
     "GROWTH_FACTOR", "GROWTH_PATIENCE", "watchdog_init", "watchdog_update",
     "SolveInfo", "SolveResult", "ConvergenceError", "make_solve_info",
+    "EngineSnapshot",
 ]
 
 # Residual-growth watchdog: abort when the L1 residual grows by more than
@@ -148,3 +151,15 @@ def make_solve_info(iters, residual, grow, *, tol: float,
     return SolveInfo(iters=iters, residual=residual, tol=float(tol),
                      max_iters=int(max_iters), converged=converged,
                      diverged=diverged, nonfinite=nonfinite, trace=trace)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineSnapshot:
+    """Everything needed to rebuild a healthy engine on the host: the edge
+    set (sorted int64 keys), the solved ranks, and the solve residual —
+    device layouts are *derived* state and are reconstructed on restore."""
+
+    keys: np.ndarray              # sorted int64 edge keys (src * n + dst)
+    ranks: np.ndarray | None      # solved rank vector (host copy)
+    residual: float
+    version: int = -1             # graph version stamped by a rank store

@@ -1,9 +1,8 @@
 """LRU PPR result cache with delta-aware invalidation.
 
 The port's own copy of ``repro.serve.cache`` (pure numpy on the host; the
-port imports nothing of the JAX package).  The delta-aware invalidation
-is ported whole; the port's serve engine calls it once dynamic graphs are
-ported (ROADMAP Queue 1 item 8).
+port imports nothing of the JAX package).  The serve engine's ``refresh``
+calls the delta-aware invalidation after every applied graph update.
 
 Entries are keyed by (precision tier, canonical seed set) and stamped
 with the graph version they were solved at.  On a graph delta the serve

@@ -11,15 +11,20 @@ seed sets on the host, and a
 :class:`~repro_torch.pagerank.landmarks.LandmarkIndex` replaces the cold
 solve with hub-combination warm starts plus a short residual push.
 
+Over a :class:`~repro_torch.pagerank.dynamic.DynamicPageRankEngine` the
+graph is live: ``push_update`` queues a delta, and ``refresh`` — run by
+every ``flush`` before it serves — folds the backlog into the engine as
+one update (``compose``), bumps ``graph_version`` and runs the cache's
+delta-aware invalidation with the per-column perturbation weights.
+
 Each flush copies the solved (N, Q) matrix to the host once, then ranks
 every query's top-k there.  Every non-empty flush records one ``serve``
 event (schema v1, the JAX package's keys) and the ``serve.*`` counters and
 histograms.
 
-Not ported yet: live graph updates (``push_update`` / ``refresh`` need a
-dynamic engine, ROADMAP Queue 1 item 8), the resilient serve mode
-(``resilience=``, Queue 1 item 9) and the LM decoder ``ServeEngine``
-(Queue 1 item 12).
+Not ported yet: the resilient serve mode (``resilience=``, ROADMAP Queue 1
+item 9: validation, dead letters, the snapshot ladder) and the LM decoder
+``ServeEngine`` (Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import time
 
 import numpy as np
 
+from repro_torch.graph.delta import compose
 from repro_torch.obs.registry import default_registry
 from repro_torch.pagerank.sparse import top_k_proteins
 from repro_torch.serve.cache import ResultCache
@@ -61,15 +67,16 @@ class PageRankQueryEngine:
     :class:`~repro_torch.pagerank.engine.PageRankEngine`.
 
     ``submit`` queues a query and flushes at ``max_batch``; ``flush``
-    serves the queue with one batched solve; ``query_batch`` is the
-    one-shot form.  ``cache`` and ``landmarks`` are optional, as in the
-    JAX package; every query is stamped ``cache_outcome`` when a cache is
-    attached, and flushes record per-outcome counters and latency
-    histograms.
+    serves the queue with one batched solve, after applying any pending
+    graph deltas; ``query_batch`` is the one-shot form; ``push_update`` /
+    ``refresh`` take live graph updates (a dynamic engine only).
+    ``cache`` and ``landmarks`` are optional, as in the JAX package; every
+    query is stamped ``cache_outcome`` when a cache is attached, and
+    flushes record per-outcome counters and latency histograms.
     """
 
     def __init__(self, engine, n_iters: int = 100, max_batch: int = 8,
-                 resilience=None, metrics=None,
+                 refresh_tol: float = 1e-6, resilience=None, metrics=None,
                  cache: ResultCache | None = None, landmarks=None):
         if resilience is not None:
             raise NotImplementedError(
@@ -79,11 +86,14 @@ class PageRankQueryEngine:
         self.engine = engine
         self.n_iters = n_iters
         self.max_batch = max_batch
+        self.refresh_tol = refresh_tol
         self._queue: list[PPRQuery] = []
+        self._pending_deltas: list = []
+        self.n_refreshes = 0
+        self.last_update_info = None
         self.cache = cache
         self.landmarks = landmarks
-        # cache-consistency clock, bumped by applied graph updates (none
-        # until dynamic graphs are ported)
+        # cache-consistency clock: bumped on every applied refresh
         self.graph_version = 0
         self._last_flush_stats: dict | None = None
         # metrics sink: share the engine's registry by default so solves
@@ -109,19 +119,96 @@ class PageRankQueryEngine:
             self.flush()
         return q
 
-    def push_update(self, delta):
-        """Live graph updates need a dynamic engine; the port has none yet
-        (ROADMAP Queue 1 item 8), so every engine here is static."""
-        raise TypeError(
-            "push_update needs a DynamicPageRankEngine; "
-            f"got a static {type(self.engine).__name__}")
+    def push_update(self, delta) -> None:
+        """Queue a streamed :class:`~repro_torch.graph.delta.GraphDelta`;
+        it is folded into the graph at the next :meth:`refresh` /
+        :meth:`flush`, before any queued query is served.  A malformed
+        delta (out-of-range node ids) raises here, before it can poison
+        the pending batch."""
+        if not hasattr(self.engine, "update"):
+            raise TypeError(
+                "push_update needs a DynamicPageRankEngine; "
+                f"got a static {type(self.engine).__name__}")
+        self._pending_deltas.append(delta.canonical(
+            self.engine.n, symmetric=self.engine.symmetric))
+
+    def refresh(self) -> list:
+        """Apply every pending delta to the live engine now — coalesced
+        into ONE update (``compose`` keeps the in-order semantics), so a
+        backlog of k stream ticks costs one solve, not k.  Returns the
+        :class:`~repro_torch.pagerank.dynamic.UpdateInfo` records (one
+        entry when anything was pending).  On an exception the deltas are
+        re-queued, ahead of anything pushed meanwhile, and the exception
+        propagates."""
+        deltas, self._pending_deltas = self._pending_deltas, []
+        if not deltas:
+            return []
+        merged = deltas[0] if len(deltas) == 1 else compose(
+            deltas, self.engine.n, symmetric=self.engine.symmetric)
+        # pre-update out-degrees anchor the per-column perturbation
+        # weights of the delta-aware cache invalidation
+        old_outdeg = (np.asarray(self.engine._outdeg).copy()
+                      if self.cache is not None else None)
+        try:
+            _, info = self.engine.update(merged, tol=self.refresh_tol)
+        except Exception:
+            self._pending_deltas = deltas + self._pending_deltas
+            raise
+        self.n_refreshes += 1
+        self.last_update_info = info
+        self._last_refresh_t = time.monotonic()
+        self.metrics.counter("serve.refresh.ok").inc()
+        self.metrics.event("refresh", applied=True, attempts=1,
+                           status="ok", strategy=info.strategy)
+        self._after_refresh(merged, old_outdeg)
+        return [info]
+
+    # ------------------------ cache invalidation ----------------------- #
+    def _after_refresh(self, merged, old_outdeg) -> None:
+        """Bump the cache-consistency clock after an applied delta and run
+        the delta-aware invalidation: the transition columns that changed
+        are the delta's source endpoints, and a column's L1 perturbation
+        is bounded by ``2·(#changed edges at u)/deg(u)``.  Entries holding
+        enough rank mass on perturbed columns are dropped, the rest
+        re-stamped (:meth:`ResultCache.invalidate`)."""
+        self.graph_version += 1
+        if self.cache is None:
+            return
+        cols = np.concatenate([
+            np.asarray(merged.insert_src, np.int64),
+            np.asarray(merged.delete_src, np.int64)])
+        uniq, counts = np.unique(cols, return_counts=True)
+        new_deg = np.asarray(self.engine._outdeg)[uniq].astype(np.float64)
+        old_deg = old_outdeg[uniq].astype(np.float64)
+        w = np.minimum(2.0, 2.0 * counts
+                       / np.maximum(np.maximum(old_deg, new_deg), 1.0))
+        dropped, kept = self.cache.invalidate(uniq, w, self.graph_version)
+        self.metrics.counter("serve.cache.invalidations").inc(dropped)
+        self.metrics.event("cache_invalidate", cols=int(uniq.size),
+                           dropped=dropped, kept=kept,
+                           version=self.graph_version)
+
+    def _invalidate_all(self) -> None:
+        """Escape hatch for a change with no per-column story: bump the
+        clock and drop every cached answer."""
+        self.graph_version += 1
+        if self.cache is None:
+            return
+        dropped, kept = self.cache.invalidate(None, None,
+                                              self.graph_version)
+        self.metrics.counter("serve.cache.invalidations").inc(dropped)
+        self.metrics.event("cache_invalidate", cols=None, dropped=dropped,
+                           kept=kept, version=self.graph_version)
 
     def flush(self) -> list[PPRQuery]:
-        """Serve every queued query with one batched solve.
+        """Serve every queued query with one batched solve — after folding
+        in any pending graph deltas, so in-flight queries never see ranks
+        staler than one refresh interval.
 
         Every non-empty flush records one ``serve`` event and a
-        ``serve.batch_ms`` latency sample, bumps the batch/query counters,
-        and sets the ``serve.freshness_lag_s`` gauge."""
+        ``serve.batch_ms`` latency sample (refresh included), bumps the
+        batch/query counters, and sets the ``serve.freshness_lag_s``
+        gauge."""
         t0 = time.perf_counter()
         batch = self._flush()
         if not batch:
@@ -157,6 +244,8 @@ class PageRankQueryEngine:
         return batch
 
     def _flush(self) -> list[PPRQuery]:
+        if self._pending_deltas:
+            self.refresh()
         batch, self._queue = self._queue, []
         if not batch:
             return []

@@ -1,8 +1,10 @@
-"""PyTorch port on the card: the hand-written fused-step and streaming
-matvec kernels against their plain versions, the wrappers' checks on CUDA
-tensors, and the engine's fused tier (``run`` and batched PPR).  Every
-test here needs a CUDA card and ``nvcc``; without a card each one skips
-with the reason (they carry the ``cuda`` marker).
+"""PyTorch port on the card: the hand-written kernels (the fused step K1,
+the streaming matvec K2, the BSR SpMV K3 and the unpadded step K4) against
+their plain versions, the wrappers' checks on CUDA tensors, the engine's
+fused and ``bsr`` tiers (``run``, ``run_tol`` and batched PPR) with their
+launch counts, ``ops.pagerank_iteration``, and one dynamic update per
+patchable tier.  Every test here needs a CUDA card and ``nvcc``; without a
+card each one skips with the reason (they carry the ``cuda`` marker).
 On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -11,13 +13,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.graph.delta import GraphDelta, apply_delta, edge_keys
 from repro_torch.graph.generators import protein_network
+from repro_torch.graph.sparse import BSRMatrix
+from repro_torch.kernels import bsr_spmv as k3
+from repro_torch.kernels import ops
 from repro_torch.kernels import pagerank_step as k1
 from repro_torch.kernels import streaming_matvec as k2
-from repro_torch.kernels.ref import (pagerank_step_fused_ref,
-                                     streaming_matvec_ref)
+from repro_torch.kernels.ref import (bsr_spmv_ref, pagerank_step_fused_ref,
+                                     pagerank_step_ref, streaming_matvec_ref)
 from repro_torch.obs.registry import NullRegistry
-from repro_torch.pagerank import LandmarkIndex, PageRankEngine
+from repro_torch.pagerank import (DynamicPageRankEngine, LandmarkIndex,
+                                  PageRankEngine)
+from repro_torch.pagerank.dense import pagerank_dense_fixed
 
 pytestmark = pytest.mark.cuda
 
@@ -198,3 +206,197 @@ def test_engine_fused_ppr_on_card(cuda):
             exact = eng.ppr(seed_sets, n_iters=200).cpu().numpy()
             assert info["fallbacks"] == 0
             assert float(np.abs(A - exact).max()) <= 1e-5
+
+
+def _bsr_case(n, bs, density, B, precision, dev, seed=0, empty_row=False):
+    """A BSR layout of a random (n, n) matrix at PageRank's scale (entries
+    in [0, 2/n)) and X (B, n) whose rows are distributions; int8 blocks
+    as integers (their scales are the caller's)."""
+    rng = np.random.default_rng(seed)
+    A = rng.random((n, n), dtype=np.float32) * (2.0 / n)
+    A[rng.random((n, n)) > density] = 0.0
+    if empty_row:
+        A[:bs] = 0.0                # block row 0 holds no block
+    bsr = BSRMatrix.from_dense(A, bs=bs, device="cpu")
+    blocks = bsr.blocks
+    if precision == "int8":
+        blocks = torch.round(blocks * (127.0 * n / 2.0)).to(torch.int8)
+    else:
+        blocks = blocks.to(STORE[precision])
+    X = rng.random((B, n), dtype=np.float32)
+    X /= X.sum(axis=1, keepdims=True)
+    return (blocks.to(dev), bsr.block_cols.to(dev),
+            torch.from_numpy(X).to(dev))
+
+
+@pytest.mark.parametrize("precision", list(STORE))
+@pytest.mark.parametrize("n,bs,density,B,empty", [
+    (200, 32, 0.3, 1, False), (300, 32, 0.2, 8, True),
+    (256, 128, 0.3, 1, False), (300, 128, 0.5, 64, False),
+    (384, 128, 0.1, 100, True), (5000, 128, 0.02, 1, False),
+    (5000, 128, 0.02, 8, False)])
+def test_bsr_spmv_matches_plain(cuda, n, bs, density, B, empty, precision):
+    blocks, cols, X = _bsr_case(n, bs, density, B, precision, cuda,
+                                seed=n + bs + B, empty_row=empty)
+    before = k3.launches[precision]
+    Y = k3.bsr_spmv(blocks, cols, X)
+    torch.cuda.synchronize()
+    assert k3.launches[precision] == before + 1
+    assert Y.shape == (B, blocks.shape[0] * bs) and Y.dtype == torch.float32
+    ref = bsr_spmv_ref(blocks, cols, X)
+    torch.testing.assert_close(Y, ref, **TOL32)
+    torch.testing.assert_close(Y, ref, **TIGHT)
+    assert torch.equal(k3.bsr_spmv(blocks, cols, X), Y)
+    # a query's result does not depend on what shares its batch, and the
+    # vector form is the batch form at B = 1
+    y0 = k3.bsr_spmv(blocks, cols, X[0])
+    assert torch.equal(k3.bsr_spmv(blocks, cols, X[:1].contiguous())[0], y0)
+    assert torch.equal(Y[0], y0)
+    if empty:
+        assert torch.equal(Y[:, :bs], torch.zeros_like(Y[:, :bs]))
+
+
+def test_bsr_spmv_propagates_nan_in_block_zero(cuda):
+    """Padded slots point at block column 0 and are accumulated: a NaN in
+    x block 0 reaches every row that has a padded slot, as on the TPU."""
+    A = np.zeros((256, 256), np.float32)
+    A[:128, 128:] = 1.0             # block row 0: one block, at column 1
+    A[128:, :] = 1.0                # block row 1: two blocks
+    bsr = BSRMatrix.from_dense(A, bs=128, max_blocks=2, device=cuda)
+    x = torch.ones(256, device=cuda)
+    x[3] = float("nan")
+    y = k3.bsr_spmv(bsr.blocks, bsr.block_cols, x)
+    assert torch.isnan(y).all()     # row 0's padded slot reads block 0
+
+
+def test_bsr_spmv_rejects_what_the_kernel_does_not_take(cuda):
+    blocks, cols, X = _bsr_case(256, 128, 0.3, 2, "f32", cuda)
+    bad = [
+        (blocks.double(), cols, X, "storage dtype"),
+        (blocks, cols.long(), X, "int32"),
+        (blocks, cols, X.double(), "float32"),
+        (blocks, cols, X.cpu(), "one CUDA device"),
+        (blocks.transpose(2, 3), cols, X, "contiguous"),
+        (torch.zeros((1, 1, 6, 6), device=cuda),
+         torch.zeros((1, 1), dtype=torch.int32, device=cuda),
+         torch.ones(6, device=cuda), "multiple of 4"),
+    ]
+    for b, c, x, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            k3.bsr_spmv(b, c, x)
+
+
+@pytest.mark.parametrize("precision", list(STORE))
+@pytest.mark.parametrize("N,M", [(300, 130), (257, 1001), (1000, 1000),
+                                 (5000, 5000)])
+def test_pagerank_step_matches_plain(cuda, N, M, precision):
+    rng = np.random.default_rng(N + M)
+    H = rng.random((N, M), dtype=np.float32) * (2.0 / M)
+    if precision == "int8":
+        Ht = torch.from_numpy(np.rint(H * (127.0 * M / 2.0)).astype(np.int8))
+    else:
+        Ht = torch.from_numpy(H).to(STORE[precision])
+    Ht = Ht.to(cuda)
+    pr = torch.from_numpy(rng.dirichlet(np.ones(M)).astype(np.float32)).to(
+        cuda)
+    t = torch.tensor(0.15 / N, device=cuda)
+    before = k1.step_launches[precision]
+    y = k1.pagerank_step(Ht, pr, t, d=0.85)
+    torch.cuda.synchronize()
+    assert k1.step_launches[precision] == before + 1
+    assert y.shape == (N,) and y.dtype == torch.float32
+    ref = pagerank_step_ref(Ht, pr, t, d=0.85)
+    torch.testing.assert_close(y, ref, **TOL32)
+    torch.testing.assert_close(y, ref, **TIGHT)
+    assert torch.equal(k1.pagerank_step(Ht, pr, t, d=0.85), y)
+    # the one-element load path (pr not 16-byte aligned) gives the same
+    # values within the tolerance
+    flat = torch.empty(M + 1, device=cuda)
+    flat[1:] = pr
+    torch.testing.assert_close(k1.pagerank_step(Ht, flat[1:], t, d=0.85),
+                               ref, **TIGHT)
+
+
+def test_pagerank_iteration_loop_on_card(cuda):
+    """quickstart's loop: 100 ops.pagerank_iteration steps at N = 1200
+    against pagerank_dense_fixed, one K4 launch per step."""
+    n = 1200
+    src, dst = protein_network(n, seed=1)
+    H = PageRankEngine(src, dst, n, backend="dense", device=cuda,
+                       metrics=NullRegistry()).operands[0]
+    pr = torch.full((n,), 1.0 / n, device=cuda)
+    before = k1.step_launches["f32"]
+    for _ in range(100):
+        pr = ops.pagerank_iteration(H, pr)
+    torch.cuda.synchronize()
+    assert k1.step_launches["f32"] == before + 100
+    torch.testing.assert_close(pr, pagerank_dense_fixed(H, n_iters=100),
+                               rtol=1e-4, atol=1e-7)
+
+
+def test_engine_bsr_tier_on_card(cuda):
+    n = 1200
+    src, dst = protein_network(n, seed=3)
+    rng = np.random.default_rng(4)
+    seed_sets = [rng.choice(n, size=rng.integers(1, 6), replace=False)
+                 for _ in range(8)]
+    for precision in STORE:
+        dense = PageRankEngine(src, dst, n, backend="dense",
+                               precision=precision, device=cuda,
+                               metrics=NullRegistry())
+        eng = PageRankEngine(src, dst, n, backend="bsr",
+                             precision=precision, device=cuda,
+                             metrics=NullRegistry())
+        before = k3.launches[precision]
+        pr = eng.run(100)
+        torch.cuda.synchronize()
+        assert k3.launches[precision] == before + 100
+        torch.testing.assert_close(pr, dense.run(100), rtol=1e-5, atol=1e-7)
+        before = k3.launches[precision]
+        X = eng.ppr(seed_sets, n_iters=100)
+        torch.cuda.synchronize()
+        assert k3.launches[precision] == before + 100
+        torch.testing.assert_close(X, dense.ppr(seed_sets, n_iters=100),
+                                   rtol=1e-5, atol=1e-7)
+        if precision == "f32":
+            r, d = eng.run_tol(tol=1e-6), dense.run_tol(tol=1e-6)
+            assert r.info.converged and abs(r.info.iters - d.info.iters) <= 1
+
+
+@pytest.mark.parametrize("backend", ["dense", "ell", "fused_dense", "bsr"])
+def test_dynamic_update_on_card(cuda, backend):
+    """One push update per patchable tier, held to a from-scratch solve
+    (L1 <= 1e-5); the fused push launches K2 once per issued sweep plus
+    once for its start residual, the bsr push K3."""
+    n = 1200
+    src, dst = protein_network(n, seed=5)
+    dyn = DynamicPageRankEngine(src, dst, n, backend=backend, device=cuda,
+                                metrics=NullRegistry())
+    dyn.run_tol(1e-7, max_iters=500)
+    have = set(edge_keys(src, dst, n).tolist())
+    blocks = (set(dyn._bsr_pairs.tolist()) if backend == "bsr" else None)
+    rng = np.random.default_rng(6)
+    pairs = []
+    while len(pairs) < 3:
+        u, v = (int(x) for x in rng.integers(0, n, 2))
+        if u == v or u * n + v in have or v * n + u in have:
+            continue
+        if blocks is not None and not {
+                (v // 128) * dyn._bsr_nbc + u // 128,
+                (u // 128) * dyn._bsr_nbc + v // 128} <= blocks:
+            continue            # an in-block insert: the bsr tier patches
+        pairs.append((u, v))
+    iu, iv = np.array(pairs).T
+    delta = GraphDelta(iu, iv, src[:2], dst[:2])
+    counts = {"fused_dense": k2.launches, "bsr": k3.launches}.get(backend)
+    before = None if counts is None else counts["f32"]
+    pr, info = dyn.update(delta)
+    torch.cuda.synchronize()
+    assert info.strategy == "push" and info.healthy
+    if counts is not None:
+        issued = -(-info.iters // 8) * 8
+        assert counts["f32"] - before == 1 + issued
+    s2, d2 = apply_delta(src, dst, delta, n)
+    ref = PageRankEngine(s2, d2, n, backend="dense", device=cuda,
+                         metrics=NullRegistry()).run(300)
+    assert float(torch.sum(torch.abs(pr - ref))) <= 1e-5

@@ -8,6 +8,7 @@ import sys
 import warnings
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,11 +32,13 @@ from repro_torch.pagerank.dense import pagerank_dense as tpagerank_dense
 from repro_torch.pagerank.sparse import top_k_proteins as ttop_k
 
 # port backend name -> JAX backend name: the one table the tests read
-BACKEND_MAP = {"dense": "dense", "ell": "ell", "fused_dense": "pallas_dense"}
+BACKEND_MAP = {"dense": "dense", "ell": "ell", "bsr": "bsr",
+               "fused_dense": "pallas_dense"}
 PRECISIONS = ("f32", "bf16", "f16", "int8")
 # engine vs reference (tests/test_pagerank_engine.py)
 TOL = {"dense": dict(rtol=1e-5, atol=1e-7), "ell": dict(rtol=1e-4,
                                                         atol=1e-7),
+       "bsr": dict(rtol=1e-5, atol=1e-7),
        "fused_dense": dict(rtol=1e-5, atol=1e-7)}
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -59,6 +62,13 @@ def _pair(net, backend, precision="f32"):
 
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _leaves(operands):
+    """The operand tensors, a container (BSRMatrix) flattened in its JAX
+    pytree leaf order."""
+    return [t for o in operands
+            for t in (o.tensors() if hasattr(o, "tensors") else (o,))]
 
 
 @pytest.mark.parametrize("precision", PRECISIONS)
@@ -245,16 +255,19 @@ def test_single_warned_f64_downcast(net):
 @pytest.mark.parametrize("backend", list(BACKEND_MAP))
 def test_layout_bytes_and_carried_layout(net, backend, precision):
     """layout_bytes equals the JAX engine's; the JAX operands carried
-    across equal the port's own build, bit for bit."""
+    across equal the port's own build, bit for bit (a BSR container as its
+    pytree leaves)."""
     j, t = _pair(net, backend, precision)
     assert t.layout_bytes == j.layout_bytes
-    arrays = {"operands": [np.asarray(o) for o in j.operands],
+    arrays = {"operands": [np.asarray(o)
+                           for o in jax.tree_util.tree_leaves(j.operands)],
               "scales": None if j._scales is None else np.asarray(j._scales),
               "dang": np.asarray(j._dang)}
     lay = layout_from_numpy(backend, arrays, precision=precision,
                             device="cpu")
     assert len(lay["operands"]) == len(t.operands)
-    for a, b in zip(lay["operands"], t.operands):
+    assert len(_leaves(lay["operands"])) == len(_leaves(t.operands))
+    for a, b in zip(_leaves(lay["operands"]), _leaves(t.operands)):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert (lay["scales"] is None) == (t._scales is None)
     if t._scales is not None:
@@ -279,7 +292,8 @@ def test_layout_from_numpy_rejects_mismatch(net):
 
 def test_select_backend_parity():
     """cpu: the JAX choice; cuda: the JAX TPU choice with pallas_dense ->
-    fused_dense and bsr -> ell (BSR is not ported yet)."""
+    fused_dense and bsr -> ell (the port has the bsr tier, but its CUDA
+    thresholds wait for a density sweep on the card)."""
     to_port = {"pallas_dense": "fused_dense", "bsr": "ell", "dense": "dense",
                "ell": "ell"}
     for n, density in [(200, 0.5), (200, 0.25), (500, 0.1), (500, 0.01),
@@ -409,8 +423,23 @@ def test_import_hygiene_subprocess():
         "from repro_torch.pagerank import convert, LandmarkIndex\n"
         "from repro_torch.pagerank import sparse, fidelity\n"
         "from repro_torch.serve import PageRankQueryEngine, ResultCache\n"
+        "from repro_torch.pagerank import DynamicPageRankEngine\n"
+        "from repro_torch.pagerank.resilience import EngineSnapshot\n"
+        "from repro_torch.graph import (BSRMatrix, ELLMatrix,\n"
+        "    build_transition_bsr, build_transition_ell)\n"
+        "from repro_torch.graph.delta import (EdgeStream, GraphDelta,\n"
+        "    apply_delta, compose)\n"
+        "from repro_torch.kernels import ops, bsr_spmv, ref\n"
+        "import torch\n"
         "src, dst = protein_network(64, seed=0)\n"
-        "for b in ('dense', 'ell', 'fused_dense'):\n"
+        "H = torch.rand(64, 64)\n"
+        "ops.matvec(H, torch.rand(64))\n"
+        "ops.gemv_batched(H, torch.rand(2, 64))\n"
+        "ops.pagerank_iteration(H, torch.rand(64), torch.zeros(64))\n"
+        "b = build_transition_bsr(src, dst, 64, bs=32, device='cpu')\n"
+        "ops.spmv(b, torch.rand(64)); build_transition_ell(src, dst, 64,\n"
+        "    device='cpu')\n"
+        "for b in ('dense', 'ell', 'bsr', 'fused_dense'):\n"
         "    e = PageRankEngine(src, dst, 64, backend=b, device='cpu')\n"
         "    e.run(5); e.run_tol(1e-6, max_iters=50)\n"
         "    X = e.ppr([[1, 2], [3]], n_iters=10)\n"
@@ -420,6 +449,15 @@ def test_import_hygiene_subprocess():
         "    r = qe.query_batch([[1, 2], [3], [1, 2]], top_k=3)\n"
         "    assert len(r) == 3 and lm.built\n"
         "    fidelity.topk_overlap(X[:, 0], X[:, 1], k=5)\n"
+        "    st = EdgeStream(64, m_edges=3, seed=1)\n"
+        "    s0, d0 = st.base()\n"
+        "    dyn = DynamicPageRankEngine(s0, d0, 64, backend=b,\n"
+        "                                device='cpu')\n"
+        "    dyn.run_tol(1e-7)\n"
+        "    qe = PageRankQueryEngine(dyn, n_iters=20, cache=ResultCache(8))\n"
+        "    qe.push_update(st.step()); qe.push_update(st.step())\n"
+        "    qe.query_batch([[1, 2]]); snap = dyn.snapshot()\n"
+        "    assert qe.n_refreshes == 1; dyn.restore(snap)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
