@@ -11,7 +11,8 @@ which raises on failure (the script then exits non-zero and prints no
 result line):
 
 1. setup: the card's name and power limit, the versions, TF32 off, the
-   kernel build (timed);
+   kernel build (timed), and the registers and spills ptxas reports for
+   every instantiation of K3 (storage type x tile);
 2. every kernel against its plain PyTorch version on the card, for every
    storage dtype, at small shapes (unpadded ones included) and at the main
    paths' shapes, and two calls bit-identical: K1, the fused step; K2, the
@@ -49,9 +50,15 @@ result line):
    checked exactly against its strategy and sweeps;
 4. times on the card (CUDA events, medians) beside each kernel's bound:
    the kernel, its plain version and the library call each with the L2
-   cache flushed before the call, and the kernel back to back as well;
-   the serve flush's p50 / p95 and the landmark build time; ``run(100)``
-   and ``run_tol`` on every tier, ``bsr`` included.
+   cache flushed before the call, and the kernel back to back as well
+   (K3's rows carry the tile each batch size takes and its registers and
+   spills); the serve flush's p50 / p95 and the landmark build time;
+   ``run(100)`` and ``run_tol`` on every tier, ``bsr`` included; and the
+   two paths K3 serves at B >= 8, each with its exact K3 launch count:
+   the ``bsr`` f32 engine's ``ppr`` of 8 seed sets (100 iterations, B =
+   8) and a 64-hub ``LandmarkIndex`` build on it (B = 64, its hub columns
+   held to the ``fused_dense`` index's), wall time, median of 5, beside
+   the same on ``fused_dense``.
 
 The last lines are a JSON object ``{"kernels": [...]}``, the card's name
 and power limit as ``nvidia-smi`` prints them, and the result line
@@ -59,7 +66,9 @@ and power limit as ``nvidia-smi`` prints them, and the result line
 """
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -107,6 +116,46 @@ LM_TOL, LM_MAX_PUSHES = 1e-7, 256
 # does not keep the mass at 1, so those tiers get the JAX suite's slack
 # (tests/test_precision.py SUM_TOL) and are held to the dense tier's sums
 SUM_TOL = {"f32": 1e-3, "bf16": 0.06, "f16": 0.01, "int8": 0.2}
+
+
+# the storage types of K3's instantiations, as the compiler mangles them
+K3_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16",
+            "a": "int8"}
+K3_TILE_KEYS = ("RL", "QW", "WR", "WQ", "ST")
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
+    log, by mangled entry name."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        m = m or re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out.setdefault(fn, {}).update(spill_stores=int(m.group(1)),
+                                          spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.setdefault(fn, {})["registers"] = int(m.group(1))
+    return out
+
+
+def k3_instantiations(log: str) -> dict:
+    """K3's kernels in its build log: (storage type, tile) -> registers and
+    spills, the tile as ``K3_TILE_KEYS``."""
+    out = {}
+    for fn, info in ptxas_report(log).items():
+        m = re.search(r"bsr_spmv_kernelI(\w+?)NS_4TileI"
+                      + r"Li(\d+)E" * 5 + "EE", fn)
+        if m:
+            tile = tuple(int(v) for v in m.groups()[1:])
+            out[(K3_TYPES[m.group(1)], tile)] = info
+    return out
 
 
 def nvidia_smi() -> str:
@@ -361,9 +410,33 @@ def main() -> int:
     print(f"kernel build: {built['seconds']:.2f} s "
           f"({', '.join(_build.sources())})")
     for name, log in built["logs"].items():
+        if name == "bsr_spmv":
+            continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    # K3: the tile each batch size takes, and each instantiation's
+    # registers and spills
+    k3_lib = _build.load("bsr_spmv")
+    k3_lib.bsr_spmv_tile.argtypes = (ctypes.c_int, ctypes.c_void_p)
+    k3_tiles = {}
+    for qp in (1, 2, 4, 8, 16, 32, 64):
+        out = (ctypes.c_int * 8)()
+        k3_lib.bsr_spmv_tile(qp, out)
+        k3_tiles[qp] = tuple(out[:5])
+    k3_regs = k3_instantiations(built["logs"]["bsr_spmv"])
+    fresh = built["logs"]["bsr_spmv"] != "(cached)"
+    for p in PRECISIONS:
+        for qp, tile in k3_tiles.items():
+            info = k3_regs.get((p, tile))
+            check(info is not None or not fresh,
+                  f"K3 {p} tile {tile}: not in the ptxas log")
+            desc = " ".join(f"{k}{v}" for k, v in zip(K3_TILE_KEYS, tile))
+            print(f"  bsr_spmv {p} QP={qp} tile {desc}: "
+                  + ("(cached build)" if info is None else
+                     f"{info['registers']} registers, "
+                     f"{info['spill_stores']} bytes spill stores, "
+                     f"{info['spill_loads']} bytes spill loads"))
 
     # ---------------------------------------------------------------- 2 --
     src, dst = protein_network(N_NODES, seed=SEED)
@@ -1080,6 +1153,10 @@ def main() -> int:
             call_ms = eager_ms(torch, kernel)
             plain_ms = cuda_ms_cold(torch, plain, flush)
             library_ms, library_note = None, None
+            if p != "f32":
+                library_note = (f"no single PyTorch call takes {p} blocks "
+                                "with a float32 X and accumulates in "
+                                "float32")
             if sparse is not None:
                 try:
                     library_ms = cuda_ms_cold(torch, lambda: sparse @ XT,
@@ -1094,6 +1171,8 @@ def main() -> int:
             ops_ms = ops_n / F32_OPS_PER_S * 1e3
             bound = max(bytes_ms, ops_ms)
             by = "bytes" if bytes_ms >= ops_ms else "operations"
+            tile = k3_tiles[min(64, 1 << (B - 1).bit_length())]
+            ptxas = k3_regs.get((p, tile), {})
             rows.append({
                 "name": f"bsr_spmv[{p},B={B}]", "route": "cuda",
                 "source": K3_SOURCE, "replaces": K3_REPLACES,
@@ -1103,7 +1182,11 @@ def main() -> int:
                 "library_ms": library_ms, "ms_warm_l2": warm_ms,
                 "ms_eager_call": call_ms, "shape": list(blocks.shape),
                 "nonzero_blocks": nnzb, "batch": B, "bytes": nbytes,
-                "operations": ops_n, "library_note": library_note})
+                "operations": ops_n, "library_note": library_note,
+                "tile": dict(zip(K3_TILE_KEYS, tile)),
+                "registers": ptxas.get("registers"),
+                "spill_stores": ptxas.get("spill_stores"),
+                "spill_loads": ptxas.get("spill_loads")})
             print(f"  K3 {p} B={B}: {ms * 1e3:.2f} us flushed, "
                   f"{warm_ms * 1e3:.2f} us warm, {call_ms * 1e3:.2f} us per "
                   f"eager call; bound {bound * 1e3:.2f} us by {by} "
@@ -1112,7 +1195,11 @@ def main() -> int:
                   "flushed"
                   + ("" if library_ms is None else
                      f"; sparse BSR @ X (cuSPARSE) {library_ms * 1e3:.2f} "
-                     "us flushed"))
+                     "us flushed")
+                  + f"; tile {dict(zip(K3_TILE_KEYS, tile))}, "
+                  f"{ptxas.get('registers')} registers, "
+                  f"{ptxas.get('spill_stores')} / {ptxas.get('spill_loads')} "
+                  "bytes spilled (stores / loads)")
     xv = pr["dense"].contiguous()
     tt = torch.tensor(0.15 / N_NODES, device=dev)
     for p in K4_PRECISIONS:
@@ -1172,6 +1259,56 @@ def main() -> int:
     for name, v in tol_ms.items():
         print(f"  run_tol(1e-6) {name}: {v:.3f} ms ({iters[name]} iters)")
 
+    # the two paths K3 serves at B >= 8, on bsr f32 and, beside them, on
+    # fused_dense f32 (K2): wall time, median of 5 after one warm-up call,
+    # with the launches of those 6 calls checked exactly
+    e2e = {}
+
+    def launched(name):
+        got = {"K2": dict(k2.launches), "K3": dict(k3.launches)}
+        kern = "K3" if name == "bsr" else "K2"
+        want = {k: {q: 6 * N_ITERS if (k == kern and q == "f32") else 0
+                    for q in PRECISIONS} for k in ("K2", "K3")}
+        check(got == want, f"{name}: launches {got}, want {want}")
+        return 6 * N_ITERS
+
+    serve_engines = {"bsr": bsr_engines["f32"], "fused_dense": engines["f32"]}
+    for name, eng in serve_engines.items():
+        k2.reset_launches()
+        k3.reset_launches()
+        e2e[f"{name}_ppr8_ms"] = wall_ms(
+            torch, lambda e=eng: e.ppr(sets8, N_ITERS))
+        e2e[f"{name}_ppr8_launches"] = launched(name)
+    lms = {}
+    for name, eng in serve_engines.items():
+        lms[name] = LandmarkIndex(eng, n_hubs=N_HUBS, tol=LM_TOL,
+                                  max_pushes=LM_MAX_PUSHES, n_iters=N_ITERS,
+                                  metrics=NullRegistry())
+        k2.reset_launches()
+        k3.reset_launches()
+        e2e[f"{name}_landmark_build_ms"] = wall_ms(
+            torch, lambda i=lms[name]: i.build(0))
+        e2e[f"{name}_landmark_build_launches"] = launched(name)
+    check(np.array_equal(lms["bsr"].hubs, lms["fused_dense"].hubs),
+          "the bsr and fused_dense indexes chose different hubs")
+    e2e["landmark_columns_max_abs_diff"] = allclose(
+        torch, torch.from_numpy(lms["bsr"]._Y),
+        torch.from_numpy(lms["fused_dense"]._Y), **TOL_TIER,
+        what="bsr landmark hub columns vs fused_dense's")
+    for name in serve_engines:
+        kern = "K3" if name == "bsr" else "K2"
+        print(f"  {name} f32 ppr({SERVE_BATCH} seed sets, {N_ITERS}): "
+              f"{e2e[f'{name}_ppr8_ms']:.3f} ms wall (median of 5); "
+              f"{N_HUBS}-hub landmark build: "
+              f"{e2e[f'{name}_landmark_build_ms']:.3f} ms wall (median of "
+              f"5); {kern} launches {N_ITERS} per call, "
+              f"{e2e[f'{name}_ppr8_launches']} and "
+              f"{e2e[f'{name}_landmark_build_launches']} over the 6 calls "
+              "of each, as counted")
+    print(f"  bsr landmark hub columns vs fused_dense's max|diff| "
+          f"{e2e['landmark_columns_max_abs_diff']:.3e} (rtol 1e-5, atol "
+          "1e-7)")
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fused.run(10)
@@ -1197,7 +1334,10 @@ def main() -> int:
                               "phase_s": bsr_s},
                       "ops_loop": {"max_abs_diff": e_ops,
                                    "k4_launches": k4_launches},
-                      "live": live}))
+                      "live": live, "k3_serve_paths": e2e,
+                      "k3_ptxas": [
+                          {"storage": p, "tile": dict(zip(K3_TILE_KEYS, t)),
+                           **info} for (p, t), info in k3_regs.items()]}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@ the streaming matvec K2, the BSR SpMV K3 and the unpadded step K4) against
 their plain versions, the wrappers' checks on CUDA tensors, the engine's
 fused and ``bsr`` tiers (``run``, ``run_tol`` and batched PPR) with their
 launch counts, ``ops.pagerank_iteration``, and one dynamic update per
-patchable tier.  Every test here needs a CUDA card and ``nvcc``; without a
-card each one skips with the reason (they carry the ``cuda`` marker).
+patchable tier.  K3 runs at every batch tile of its kernel, and a NaN in
+one query's x is held to that query.  Every test here needs a CUDA card
+and ``nvcc``; without a card each one skips with the reason (they carry
+the ``cuda`` marker).
 On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -229,12 +231,19 @@ def _bsr_case(n, bs, density, B, precision, dev, seed=0, empty_row=False):
             torch.from_numpy(X).to(dev))
 
 
+# every batch tile of the kernel (B up to 1, 2, 4, 8, 16, 32, 64) at both
+# block sizes, partial tiles, and B past 64 (groups along the grid's y)
+K3_BATCHES = [(n, bs, density, B, B % 2 == int(bs == 128))
+              for n, bs, density in ((300, 32, 0.2), (384, 128, 0.1))
+              for B in (2, 5, 16, 17, 32, 63, 65, 100)]
+
+
 @pytest.mark.parametrize("precision", list(STORE))
 @pytest.mark.parametrize("n,bs,density,B,empty", [
     (200, 32, 0.3, 1, False), (300, 32, 0.2, 8, True),
     (256, 128, 0.3, 1, False), (300, 128, 0.5, 64, False),
     (384, 128, 0.1, 100, True), (5000, 128, 0.02, 1, False),
-    (5000, 128, 0.02, 8, False)])
+    (5000, 128, 0.02, 8, False)] + K3_BATCHES)
 def test_bsr_spmv_matches_plain(cuda, n, bs, density, B, empty, precision):
     blocks, cols, X = _bsr_case(n, bs, density, B, precision, cuda,
                                 seed=n + bs + B, empty_row=empty)
@@ -267,6 +276,30 @@ def test_bsr_spmv_propagates_nan_in_block_zero(cuda):
     x[3] = float("nan")
     y = k3.bsr_spmv(bsr.blocks, bsr.block_cols, x)
     assert torch.isnan(y).all()     # row 0's padded slot reads block 0
+
+
+@pytest.mark.parametrize("precision", list(STORE))
+@pytest.mark.parametrize("B", [5, 17, 65])
+def test_bsr_spmv_nan_stays_in_its_query(cuda, B, precision):
+    """A NaN in one query's x reaches that query's rows that read its
+    block column, and no other query: the staged x tiles do not mix
+    queries, and the zero-fill past B holds."""
+    blocks, cols, X = _bsr_case(384, 128, 0.3, B, precision, cuda, seed=B)
+    bs = blocks.shape[2]
+    clean = k3.bsr_spmv(blocks, cols, X)
+    # rows whose block row has a slot at block column 1
+    reads = (cols == 1).any(dim=1).repeat_interleave(bs)
+    assert reads.any()
+    for q in sorted({0, B // 2, B - 1}):
+        Xn = X.clone()
+        Xn[q, bs + 72] = float("nan")
+        Y = k3.bsr_spmv(blocks, cols, Xn)
+        torch.cuda.synchronize()
+        nan = torch.isnan(Y)
+        assert torch.equal(nan[q], reads)
+        others = torch.arange(B, device=cuda) != q
+        assert not nan[others].any()
+        assert torch.equal(Y[others], clean[others])
 
 
 def test_bsr_spmv_rejects_what_the_kernel_does_not_take(cuda):
