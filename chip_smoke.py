@@ -12,11 +12,13 @@ result line):
 
 1. setup: the card's name and power limit, the versions, TF32 off, the
    kernel build (timed), and the registers and spills ptxas reports for
-   every instantiation of K3 (storage type x tile);
+   every instantiation of K2 (storage type x queries per CTA, none may
+   spill) and of K3 (storage type x tile);
 2. every kernel against its plain PyTorch version on the card, for every
    storage dtype, at small shapes (unpadded ones included) and at the main
    paths' shapes, and two calls bit-identical: K1, the fused step; K2, the
-   streaming batched matvec (at B = 1, 8 and 64 on 5120 x 5120); K3, the
+   streaming batched matvec (at B = 1, 8 and 64 on 5120 x 5120, each
+   query alone equal to the same query in its batch); K3, the
    BSR SpMV (bs 32 and 128, ragged n, an empty block row, B = 1, 8, 64 and
    100, and the 5000-protein 40 x 40-block layout at B = 1, 8, 64); K4,
    the unpadded step (300 x 130 and 5000 x 5000);
@@ -28,12 +30,14 @@ result line):
    counts are zeroed just before and read just after, and ``run`` is held
    to making no host sync;
 3b. the serving path on the same network: ``engine.ppr`` of 8 seed sets
-   on ``fused_dense`` at every precision (held to the ``dense`` tier), then
-   a ``PageRankQueryEngine`` with a ``ResultCache`` and a 64-hub
-   ``LandmarkIndex`` serving 64 Zipf(1.1) queries (every landmark answer
-   held to an exact 200-iteration solve, every cache hit to its miss); K2's
-   launch counts are zeroed before and read after each step and checked
-   exactly;
+   and of 1 on ``fused_dense`` at every precision (held to the ``dense``
+   tier), a 64-hub ``LandmarkIndex`` build on each reduced-precision
+   ``fused_dense`` engine (held to the same build on the ``dense`` tier),
+   then a ``PageRankQueryEngine`` with a ``ResultCache`` and a 64-hub
+   ``LandmarkIndex`` on ``fused_dense`` f32 serving 64 Zipf(1.1) queries
+   (every landmark answer held to an exact 200-iteration solve, every
+   cache hit to its miss); K2's launch counts are zeroed before and read
+   after each step, checked exactly, and kept by batch size and step;
 3c. the ``bsr`` tier on the same network at every precision: ``run(100)``
    (exactly 100 K3 launches), ``run_tol(1e-6)`` and ``ppr`` of 8 seed sets,
    each held to the ``dense`` tier at its own precision, top-10 identical;
@@ -47,12 +51,16 @@ result line):
    serve pool through ``ResultCache(1024)``; the ranks end within L1 1e-5
    of a from-scratch solve, every cached answer matches an exact solve of
    the final graph, and the K1 / K2 / K3 launches of every tick are
-   checked exactly against its strategy and sweeps;
+   checked exactly against its strategy and sweeps (K2's kept by batch
+   size);
 4. times on the card (CUDA events, medians) beside each kernel's bound:
    the kernel, its plain version and the library call each with the L2
    cache flushed before the call, and the kernel back to back as well
-   (K3's rows carry the tile each batch size takes and its registers and
-   spills); the serve flush's p50 / p95 and the landmark build time;
+   (K2's and K3's rows carry the configuration each batch size takes and
+   its registers and spills; K2's and K3's bounds count the split-TF32
+   tensor-core products, K2's launches are those of its batch size on the
+   paths above, by step); the serve flush's p50 / p95 and the landmark
+   build time;
    ``run(100)`` and ``run_tol`` on every tier, ``bsr`` included; and the
    two paths K3 serves at B >= 8, each with its exact K3 launch count:
    the ``bsr`` f32 engine's ``ppr`` of 8 seed sets (100 iterations, B =
@@ -68,6 +76,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+from collections import Counter
 import re
 import statistics
 import subprocess
@@ -78,10 +87,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# data-sheet figures of the H100 SXM (NVIDIA): device-memory rate and the
-# float32 rate outside the tensor cores (the kernel's FMAs are float32)
+# data-sheet figures of the H100 SXM (NVIDIA): device-memory rate, the
+# float32 rate outside the tensor cores (K1's and K4's FMAs are float32)
+# and the dense TF32 tensor-core rate (K2's and K3's bounds)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
+# products per term of a float32-accurate product on TF32 tensor cores:
+# float32 W split into two TF32 parts (3 products), the narrower types
+# exact in TF32 (2)
+SPLIT_PRODUCTS = {"f32": 3, "bf16": 2, "f16": 2, "int8": 2}
 
 N_NODES, N_ITERS, DAMPING, SEED = 5000, 100, 0.85, 0
 TOL32 = dict(rtol=1e-5, atol=5e-5)        # kernel vs plain (f32 accumulation)
@@ -122,6 +137,8 @@ SUM_TOL = {"f32": 1e-3, "bf16": 0.06, "f16": 0.01, "int8": 0.2}
 K3_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16",
             "a": "int8"}
 K3_TILE_KEYS = ("RL", "QW", "WR", "WQ", "ST")
+K2_CONFIG_KEYS = ("MT", "WR", "WQ", "ST", "KG", "PF", "SPLITS", "RESTART")
+K2_BATCHES = (1, 8, 64)
 
 
 def ptxas_report(log: str) -> dict:
@@ -155,6 +172,17 @@ def k3_instantiations(log: str) -> dict:
         if m:
             tile = tuple(int(v) for v in m.groups()[1:])
             out[(K3_TYPES[m.group(1)], tile)] = info
+    return out
+
+
+def k2_instantiations(log: str) -> dict:
+    """K2's kernels in its build log: (storage type, queries per CTA) ->
+    registers and spills."""
+    out = {}
+    for fn, info in ptxas_report(log).items():
+        m = re.search(r"streaming_matvec_kernelI(\w+?)Li(\d+)ENS_3CfgI", fn)
+        if m:
+            out[(K3_TYPES[m.group(1)], int(m.group(2)))] = info
     return out
 
 
@@ -410,11 +438,36 @@ def main() -> int:
     print(f"kernel build: {built['seconds']:.2f} s "
           f"({', '.join(_build.sources())})")
     for name, log in built["logs"].items():
-        if name == "bsr_spmv":
+        if name in ("bsr_spmv", "streaming_matvec"):
             continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    # K2: the configuration each batch size takes, and each
+    # instantiation's registers and spills (none may spill)
+    k2_lib = _build.load("streaming_matvec")
+    k2_lib.streaming_matvec_config.argtypes = (ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_void_p)
+    k2_configs = {}
+    for code, p in enumerate(PRECISIONS):
+        for qp in (8, 16, 32, 64):
+            out = (ctypes.c_int * 11)()
+            k2_lib.streaming_matvec_config(code, qp, out)
+            k2_configs[(p, qp)] = dict(zip(K2_CONFIG_KEYS, out[1:9]))
+    k2_regs = k2_instantiations(built["logs"]["streaming_matvec"])
+    fresh = built["logs"]["streaming_matvec"] != "(cached)"
+    for (p, qp), conf in k2_configs.items():
+        info = k2_regs.get((p, qp))
+        check(info is not None or not fresh,
+              f"K2 {p} QP={qp}: not in the ptxas log")
+        check(info is None or info["spill_stores"] + info["spill_loads"]
+              == 0, f"K2 {p} QP={qp} spills: {info}")
+        desc = " ".join(f"{k}{v}" for k, v in conf.items())
+        print(f"  streaming_matvec {p} QP={qp} {desc}: "
+              + ("(cached build)" if info is None else
+                 f"{info['registers']} registers, "
+                 f"{info['spill_stores']} bytes spill stores, "
+                 f"{info['spill_loads']} bytes spill loads"))
     # K3: the tile each batch size takes, and each instantiation's
     # registers and spills
     k3_lib = _build.load("bsr_spmv")
@@ -508,6 +561,11 @@ def main() -> int:
             check(Y.shape == (B, N), f"{what}: shape {tuple(Y.shape)}")
             check(bool(torch.equal(k2.streaming_matvec(Wt, Xt), Y)),
                   f"{what}: two calls are not bit-identical")
+            for q in sorted({0, B - 1}):
+                check(bool(torch.equal(
+                    k2.streaming_matvec(Wt, Xt[q:q + 1].contiguous()),
+                    Y[q:q + 1])), f"{what}: query {q} alone differs from "
+                    "the same query in the batch")
             rel = float(((Y - ref).abs() / ref.abs()).max())
             key = (p, B if N == 5120 else 0)
             k2_err[key] = max(k2_err.get(key, 0.0), e)
@@ -684,29 +742,64 @@ def main() -> int:
           f"d={DAMPING}; K2 launch counts zeroed before and read after "
           "each step")
     serve_launches = {p: 0 for p in PRECISIONS}
+    # K2's launches by step of the paths, each by (storage type, B)
+    k2_steps = {step: Counter() for step in (
+        "serve.ppr8", "serve.ppr1", "serve.landmark_build", "serve.answers",
+        "live.fused_dense")}
 
-    def counted(fn):
+    def counted(fn, step):
         k2.reset_launches()
         out = fn()
         torch.cuda.synchronize()
         got = dict(k2.launches)
         for p, c in got.items():
             serve_launches[p] += c
+        k2_steps[step].update(k2.batch_launches)
         return out, got
 
     t_serve = time.perf_counter()
     pool, picks = zipf_queries(np, N_NODES, SEED)
     sets8 = [pool[j] for j in range(SERVE_BATCH)]
-    ppr = {}
+    ppr, ppr1 = {}, {}
     for p in PRECISIONS:
-        ppr[p], got = counted(lambda p=p: engines[p].ppr(sets8, N_ITERS))
+        ppr[p], got = counted(lambda p=p: engines[p].ppr(sets8, N_ITERS),
+                              "serve.ppr8")
         check(got == {q: (N_ITERS if q == p else 0) for q in PRECISIONS},
               f"ppr({N_ITERS}) on fused_dense[{p}] launched K2 {got}")
-    ppr_err, ppr_sum = {}, {}
+        ppr1[p], got = counted(
+            lambda p=p: engines[p].ppr(sets8[:1], N_ITERS), "serve.ppr1")
+        check(got == {q: (N_ITERS if q == p else 0) for q in PRECISIONS},
+              f"ppr of one seed set on fused_dense[{p}] launched K2 {got}")
+    ppr_err, ppr_sum, ppr1_err, lm_low_err = {}, {}, {}, {}
     for p in PRECISIONS:
         dense_p = PageRankEngine(src, dst, N_NODES, d=DAMPING,
                                  backend="dense", precision=p, device=dev,
                                  metrics=NullRegistry())
+        ppr1_err[p] = allclose(torch, ppr1[p], dense_p.ppr(sets8[:1],
+                                                           N_ITERS),
+                               **TOL_TIER, what=f"ppr of one seed set "
+                               f"fused_dense[{p}] vs dense[{p}]")
+        if p != "f32":
+            # a 64-hub landmark index on the reduced tier: one K2 launch
+            # at B = 64 per iteration, held to the same build on dense
+            lm_p = LandmarkIndex(engines[p], n_hubs=N_HUBS, tol=LM_TOL,
+                                 max_pushes=LM_MAX_PUSHES, n_iters=N_ITERS,
+                                 metrics=NullRegistry())
+            _, got = counted(lambda i=lm_p: i.build(0),
+                             "serve.landmark_build")
+            check(got == {q: (N_ITERS if q == p else 0)
+                          for q in PRECISIONS},
+                  f"landmark build on fused_dense[{p}] launched K2 {got}")
+            lm_d = LandmarkIndex(dense_p, n_hubs=N_HUBS, tol=LM_TOL,
+                                 max_pushes=LM_MAX_PUSHES, n_iters=N_ITERS,
+                                 metrics=NullRegistry())
+            lm_d.build(0)
+            check(np.array_equal(lm_p.hubs, lm_d.hubs),
+                  f"{p}: the landmark indexes chose different hubs")
+            lm_low_err[p] = allclose(
+                torch, torch.from_numpy(lm_p._Y), torch.from_numpy(lm_d._Y),
+                **TOL_TIER, what=f"landmark hub columns fused_dense[{p}] "
+                f"vs dense[{p}]")
         ref_p = dense_p.ppr(sets8, N_ITERS)
         X = ppr[p]
         check(X.shape == (N_NODES, SERVE_BATCH)
@@ -724,6 +817,11 @@ def main() -> int:
           + ", ".join(f"{p} {e:.3e}" for p, e in ppr_err.items()))
     print("  max |column sum - 1|: "
           + ", ".join(f"{p} {e:.3e}" for p, e in ppr_sum.items()))
+    print(f"  ppr(1 seed set, {N_ITERS}) fused_dense vs dense, max|diff|: "
+          + ", ".join(f"{p} {e:.3e}" for p, e in ppr1_err.items()))
+    print(f"  {N_HUBS}-hub landmark build on fused_dense vs dense at the "
+          "same precision, hub columns max|diff|: "
+          + ", ".join(f"{p} {e:.3e}" for p, e in lm_low_err.items()))
 
     fused_serve = engines["f32"]
     reg = MetricsRegistry()
@@ -752,7 +850,7 @@ def main() -> int:
                       max_pushes=LM_MAX_PUSHES, n_iters=N_ITERS,
                       metrics=reg)
     t0 = time.perf_counter()
-    _, got = counted(lambda: lm.ensure(0))
+    _, got = counted(lambda: lm.ensure(0), "serve.landmark_build")
     build_ms = (time.perf_counter() - t0) * 1e3
     check(got["f32"] == N_ITERS and lm.built,
           f"landmark build launched K2 {got}")
@@ -767,7 +865,7 @@ def main() -> int:
         qe.flush()
         return queries
 
-    served, got = counted(serve)
+    served, got = counted(serve, "serve.answers")
     check(got["f32"] == sum(a["launches"] for a in answers)
           and sum(got.values()) == got["f32"],
           f"serving launched K2 {got}, the answers "
@@ -808,7 +906,9 @@ def main() -> int:
         "sweeps": [a["sweeps"] for a in answers],
         "answer_q": [a["q"] for a in answers],
         "fallbacks": sum(a["fallbacks"] for a in answers),
-        "k2_launches": serve_launches, "serve_phase_s": serve_s}
+        "k2_launches": serve_launches, "serve_phase_s": serve_s,
+        "ppr1_max_abs_diff_vs_dense": ppr1_err,
+        "landmark_reduced_max_abs_diff_vs_dense": lm_low_err}
     check(k1_during_serve == 0, "the serve path launched K1")
     check(serve_launches["f32"] > 0, "the serve path launched no K2")
     print(f"  landmark build ({N_HUBS} hubs, {N_ITERS} iterations): "
@@ -967,6 +1067,8 @@ def main() -> int:
             got = {"K1": sum(k1.launches.values()),
                    "K2": sum(k2.launches.values()),
                    "K3": sum(k3.launches.values())}
+            if backend == "fused_dense":
+                k2_steps["live.fused_dense"].update(k2.batch_launches)
             check(got == want, f"{backend} tick {tick} ({info.strategy}, "
                   f"{info.iters} sweeps, {misses} misses): launches {got}, "
                   f"want {want}")
@@ -1075,7 +1177,7 @@ def main() -> int:
     for p in PRECISIONS:
         W = engines[p].operands[0]
         Np, Mp = W.shape
-        for B in (SERVE_BATCH, N_HUBS):
+        for B in K2_BATCHES:
             Xh = np.zeros((B, Mp), np.float32)
             Xh[:, :N_NODES] = rng.dirichlet(np.ones(N_NODES), size=B)
             X = torch.from_numpy(Xh).to(dev)
@@ -1094,30 +1196,47 @@ def main() -> int:
             if p == "f32":
                 library_ms = cuda_ms_cold(torch, lambda: X @ W.T, flush)
             nbytes = W.numel() * W.element_size() + 4 * B * (Mp + Np)
-            ops = 2 * B * Np * Mp
+            # the tensor-core operations of the split products
+            ops = SPLIT_PRODUCTS[p] * 2 * B * Np * Mp
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / F32_OPS_PER_S * 1e3
+            ops_ms = ops / TF32_OPS_PER_S * 1e3
             bound = max(bytes_ms, ops_ms)
             by = "bytes" if bytes_ms >= ops_ms else "operations"
+            by_step = {step: c[(p, B)] for step, c in k2_steps.items()
+                       if c[(p, B)]}
+            launched = sum(by_step.values())
+            check(launched > 0, f"the paths launched K2 {p} at B={B} no "
+                  "time")
+            qp = min(64, max(8, 1 << (B - 1).bit_length()))
+            ptxas = k2_regs.get((p, qp), {})
             rows.append({
                 "name": f"streaming_matvec[{p},B={B}]", "route": "cuda",
                 "source": K2_SOURCE, "replaces": K2_REPLACES,
-                "launches": serve_launches[p],
+                "launches": launched, "launches_by_step": by_step,
                 "max_abs_err": k2_err[(p, B)], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                 "library_ms": library_ms, "ms_warm_l2": warm_ms,
                 "ms_eager_call": call_ms, "shape": [Np, Mp], "batch": B,
-                "bytes": nbytes, "operations": ops})
+                "bytes": nbytes, "operations": ops,
+                "config": dict(k2_configs[(p, qp)], QP=qp),
+                "registers": ptxas.get("registers"),
+                "spill_stores": ptxas.get("spill_stores"),
+                "spill_loads": ptxas.get("spill_loads")})
             print(f"  K2 {p} B={B}: {ms * 1e3:.2f} us flushed, "
                   f"{warm_ms * 1e3:.2f} us warm, {call_ms * 1e3:.2f} us per "
                   f"eager call; bound {bound * 1e3:.2f} us by {by} "
                   f"({nbytes} bytes at {HBM_BYTES_PER_S / 1e12} TB/s, "
-                  f"{ops} float32 operations at "
-                  f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s); plain "
+                  f"{ops} TF32 tensor-core operations at "
+                  f"{TF32_OPS_PER_S / 1e12:.0f} TFLOP/s); plain "
                   f"{plain_ms * 1e3:.2f} us flushed"
                   + ("" if library_ms is None else
                      f"; X @ W.T (TF32 off) {library_ms * 1e3:.2f} us "
-                     "flushed"))
+                     "flushed")
+                  + f"; launches {by_step}; QP={qp} "
+                  f"{k2_configs[(p, qp)]}, {ptxas.get('registers')} "
+                  "registers, "
+                  f"{ptxas.get('spill_stores')} / {ptxas.get('spill_loads')} "
+                  "bytes spilled (stores / loads)")
     for p in PRECISIONS:
         bsr = bsr_engines[p].operands[0]
         blocks, cols = bsr.blocks, bsr.block_cols
@@ -1166,9 +1285,10 @@ def main() -> int:
                     print(f"  K3 library call: {library_note}")
             nbytes = (nnzb * bs * bs * blocks.element_size()
                       + 4 * cols.numel() + 4 * B * (Mp + Np))
-            ops_n = 2 * B * nnzb * bs * bs
+            # as K2's: the split products on the TF32 tensor cores
+            ops_n = SPLIT_PRODUCTS[p] * 2 * B * nnzb * bs * bs
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops_n / F32_OPS_PER_S * 1e3
+            ops_ms = ops_n / TF32_OPS_PER_S * 1e3
             bound = max(bytes_ms, ops_ms)
             by = "bytes" if bytes_ms >= ops_ms else "operations"
             tile = k3_tiles[min(64, 1 << (B - 1).bit_length())]
@@ -1191,8 +1311,8 @@ def main() -> int:
                   f"{warm_ms * 1e3:.2f} us warm, {call_ms * 1e3:.2f} us per "
                   f"eager call; bound {bound * 1e3:.2f} us by {by} "
                   f"({nnzb} of {nb_r * mb} blocks, {nbytes} bytes, {ops_n} "
-                  f"float32 operations); plain {plain_ms * 1e3:.2f} us "
-                  "flushed"
+                  f"TF32 tensor-core operations); plain "
+                  f"{plain_ms * 1e3:.2f} us flushed"
                   + ("" if library_ms is None else
                      f"; sparse BSR @ X (cuSPARSE) {library_ms * 1e3:.2f} "
                      "us flushed")
@@ -1335,6 +1455,13 @@ def main() -> int:
                       "ops_loop": {"max_abs_diff": e_ops,
                                    "k4_launches": k4_launches},
                       "live": live, "k3_serve_paths": e2e,
+                      "k2_launches_by_step": {
+                          step: {f"{p},B={b}": n for (p, b), n in c.items()}
+                          for step, c in k2_steps.items()},
+                      "k2_ptxas": [
+                          {"storage": p, "QP": qp, **k2_configs[(p, qp)],
+                           **info}
+                          for (p, qp), info in k2_regs.items()],
                       "k3_ptxas": [
                           {"storage": p, "tile": dict(zip(K3_TILE_KEYS, t)),
                            **info} for (p, t), info in k3_regs.items()]}))

@@ -14,19 +14,22 @@ Any N and M are taken.  The kernel needs M to be a multiple of 4, so only
 then does the wrapper pad the columns of ``W`` and ``X`` (a copy); the
 engine's pre-padded layouts never need it.
 
-``launches`` counts kernel launches per storage dtype; only the CUDA path
-adds to it, once per launch.
+``launches`` counts kernel launches per storage dtype, and
+``batch_launches`` the same launches per (storage dtype, batch size B);
+only the CUDA path adds to them, once per launch.
 """
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ref import streaming_matvec_ref
 
-__all__ = ["streaming_matvec", "launches", "reset_launches"]
+__all__ = ["streaming_matvec", "launches", "batch_launches",
+           "reset_launches"]
 
 _DTYPES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"),
            torch.float16: (2, "f16"), torch.int8: (3, "int8")}
@@ -35,6 +38,7 @@ _DTYPES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"),
 _COL_MULT = 4
 
 launches = {name: 0 for _, name in _DTYPES.values()}
+batch_launches: Counter = Counter()     # (dtype name, B) -> launches
 
 _lib = None
 
@@ -42,6 +46,7 @@ _lib = None
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    batch_launches.clear()
 
 
 def _library():
@@ -102,4 +107,5 @@ def streaming_matvec(W: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(
             f"streaming_matvec launch failed: cudaError_t {err}")
     launches[name] += 1
+    batch_launches[name, B] += 1
     return Y

@@ -3,10 +3,10 @@ the streaming matvec K2, the BSR SpMV K3 and the unpadded step K4) against
 their plain versions, the wrappers' checks on CUDA tensors, the engine's
 fused and ``bsr`` tiers (``run``, ``run_tol`` and batched PPR) with their
 launch counts, ``ops.pagerank_iteration``, and one dynamic update per
-patchable tier.  K3 runs at every batch tile of its kernel, and a NaN in
-one query's x is held to that query.  Every test here needs a CUDA card
-and ``nvcc``; without a card each one skips with the reason (they carry
-the ``cuda`` marker).
+patchable tier.  K2 and K3 run at every batch width of their kernels,
+and a NaN in one query's x is held to that query.  Every test here needs
+a CUDA card and ``nvcc``; without a card each one skips with the reason
+(they carry the ``cuda`` marker).
 On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -157,6 +157,51 @@ def test_streaming_matvec_matches_plain(cuda, N, M, B, precision):
     assert torch.equal(k2.streaming_matvec(W, X), Y)
     # a query's result does not depend on what shares its batch
     assert torch.equal(k2.streaming_matvec(W, X[:1].contiguous()), Y[:1])
+
+
+# every padded batch width of K2 (8, 16, 32 and 64 queries per CTA), its
+# ragged edge, and B past 64 (groups along the grid's y)
+K2_BATCHES = (1, 2, 3, 7, 8, 9, 16, 33, 64, 65, 100)
+
+
+@pytest.mark.parametrize("precision", list(STORE))
+@pytest.mark.parametrize("N,M", [(5120, 5120), (1037, 1244)])
+@pytest.mark.parametrize("B", K2_BATCHES)
+def test_streaming_matvec_batch_widths(cuda, B, N, M, precision):
+    """At the main path's layout and at a ragged one (N past a row block,
+    M not a multiple of the 32-column group): the plain version's
+    tolerances, bit-identical repeats, and the first, a middle and the last
+    query alone equal to the same query in the batch."""
+    W, X = _smv_case(N, M, B, precision, cuda, seed=N + M + B)
+    Y = k2.streaming_matvec(W, X)
+    torch.cuda.synchronize()
+    ref = streaming_matvec_ref(W, X)
+    torch.testing.assert_close(Y, ref, **TOL32)
+    torch.testing.assert_close(Y, ref, **TIGHT)
+    assert torch.equal(k2.streaming_matvec(W, X), Y)
+    for q in sorted({0, B // 2, B - 1}):
+        alone = k2.streaming_matvec(W, X[q:q + 1].contiguous())
+        assert torch.equal(alone, Y[q:q + 1])
+
+
+@pytest.mark.parametrize("precision", list(STORE))
+@pytest.mark.parametrize("B", [5, 17, 65])
+def test_streaming_matvec_nan_stays_in_its_query(cuda, B, precision):
+    """A NaN in one query's X reaches every output of that query and no
+    other: the split X tiles do not mix queries, and the zero-fill past B
+    holds."""
+    W, X = _smv_case(640, 768, B, precision, cuda, seed=B)
+    clean = k2.streaming_matvec(W, X)
+    for q in sorted({0, B // 2, B - 1}):
+        Xn = X.clone()
+        Xn[q, 300] = float("nan")
+        Y = k2.streaming_matvec(W, Xn)
+        torch.cuda.synchronize()
+        nan = torch.isnan(Y)
+        assert nan[q].all()
+        others = torch.arange(B, device=cuda) != q
+        assert not nan[others].any()
+        assert torch.equal(Y[others], clean[others])
 
 
 def test_streaming_matvec_rejects_what_the_kernel_does_not_take(cuda):
