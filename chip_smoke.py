@@ -57,10 +57,10 @@ result line):
    the kernel, its plain version and the library call each with the L2
    cache flushed before the call, and the kernel back to back as well
    (K2's and K3's rows carry the configuration each batch size takes and
-   its registers and spills; K2's and K3's bounds count the split-TF32
-   tensor-core products, K2's launches are those of its batch size on the
-   paths above, by step); the serve flush's p50 / p95 and the landmark
-   build time;
+   its registers and spills; K2's and K3's bounds count the cheapest
+   float32-accurate split product on the tensor cores (``SPLIT_SCHEMES``),
+   K2's launches are those of its batch size on the paths above, by step);
+   the serve flush's p50 / p95 and the landmark build time;
    ``run(100)`` and ``run_tol`` on every tier, ``bsr`` included; and the
    two paths K3 serves at B >= 8, each with its exact K3 launch count:
    the ``bsr`` f32 engine's ``ppr`` of 8 seed sets (100 iterations, B =
@@ -89,14 +89,34 @@ SRC = ROOT / "src"
 
 # data-sheet figures of the H100 SXM (NVIDIA): device-memory rate, the
 # float32 rate outside the tensor cores (K1's and K4's FMAs are float32)
-# and the dense TF32 tensor-core rate (K2's and K3's bounds)
+# and the dense TF32 and BF16 tensor-core rates (K2's and K3's bounds)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
-# products per term of a float32-accurate product on TF32 tensor cores:
-# float32 W split into two TF32 parts (3 products), the narrower types
-# exact in TF32 (2)
-SPLIT_PRODUCTS = {"f32": 3, "bf16": 2, "f16": 2, "int8": 2}
+BF16_OPS_PER_S = 989e12
+# The float32-accurate schemes on the tensor cores for each storage type
+# of W, as (products per term, input type, rate); a bound takes the
+# cheapest.  TF32 (10-bit mantissa): float32 W and X each split in two
+# parts (3 products: xs*wb, xb*ws, xb*wb), the narrower types exact in
+# TF32 (2: xs*w, xb*w).  BF16 (7-bit mantissa, float32's exponent): X in
+# three parts (24 bits); bf16 and int8 W are exact in bf16 (3 products),
+# f16 W takes two parts (5 products of the 6 that float32's digits need),
+# float32 W three (6).
+SPLIT_SCHEMES = {
+    "f32": ((3, "tf32", TF32_OPS_PER_S), (6, "bf16", BF16_OPS_PER_S)),
+    "bf16": ((2, "tf32", TF32_OPS_PER_S), (3, "bf16", BF16_OPS_PER_S)),
+    "f16": ((2, "tf32", TF32_OPS_PER_S), (5, "bf16", BF16_OPS_PER_S)),
+    "int8": ((2, "tf32", TF32_OPS_PER_S), (3, "bf16", BF16_OPS_PER_S)),
+}
+
+
+def split_bound(precision: str, terms: int) -> tuple[float, int, str]:
+    """The least time of ``terms`` float32-accurate multiply-adds with W
+    stored as ``precision`` on the tensor cores: (ms, operations, scheme),
+    over the schemes of ``SPLIT_SCHEMES``."""
+    return min((2 * k * terms / rate * 1e3, 2 * k * terms, f"{k} x {kind}")
+               for k, kind, rate in SPLIT_SCHEMES[precision])
+
 
 N_NODES, N_ITERS, DAMPING, SEED = 5000, 100, 0.85, 0
 TOL32 = dict(rtol=1e-5, atol=5e-5)        # kernel vs plain (f32 accumulation)
@@ -386,15 +406,15 @@ def topk_overlap(np, a, b, k):
 
 
 def main() -> int:
+    if not (SRC / "repro_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from the "
+              "repository root", file=sys.stderr)
+        return 2
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    if not (SRC / "repro_torch" / "__init__.py").is_file():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from the "
-              "repository root", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
 
@@ -448,12 +468,15 @@ def main() -> int:
     k2_lib = _build.load("streaming_matvec")
     k2_lib.streaming_matvec_config.argtypes = (ctypes.c_int, ctypes.c_int,
                                                ctypes.c_void_p)
-    k2_configs = {}
-    for code, p in enumerate(PRECISIONS):
-        for qp in (8, 16, 32, 64):
-            out = (ctypes.c_int * 11)()
-            k2_lib.streaming_matvec_config(code, qp, out)
-            k2_configs[(p, qp)] = dict(zip(K2_CONFIG_KEYS, out[1:9]))
+
+    def k2_config(p, B):
+        """The queries per CTA and the configuration of K2 at B queries."""
+        out = (ctypes.c_int * 11)()
+        k2_lib.streaming_matvec_config(PRECISIONS.index(p), B, out)
+        return out[0], dict(zip(K2_CONFIG_KEYS, out[1:9]))
+
+    k2_configs = {(p, qp): k2_config(p, qp)[1] for p in PRECISIONS
+                  for qp in (8, 16, 32, 64)}
     k2_regs = k2_instantiations(built["logs"]["streaming_matvec"])
     fresh = built["logs"]["streaming_matvec"] != "(cached)"
     for (p, qp), conf in k2_configs.items():
@@ -1196,10 +1219,9 @@ def main() -> int:
             if p == "f32":
                 library_ms = cuda_ms_cold(torch, lambda: X @ W.T, flush)
             nbytes = W.numel() * W.element_size() + 4 * B * (Mp + Np)
-            # the tensor-core operations of the split products
-            ops = SPLIT_PRODUCTS[p] * 2 * B * Np * Mp
+            # the tensor-core operations of the cheapest split product
+            ops_ms, ops, scheme = split_bound(p, B * Np * Mp)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / TF32_OPS_PER_S * 1e3
             bound = max(bytes_ms, ops_ms)
             by = "bytes" if bytes_ms >= ops_ms else "operations"
             by_step = {step: c[(p, B)] for step, c in k2_steps.items()
@@ -1207,7 +1229,7 @@ def main() -> int:
             launched = sum(by_step.values())
             check(launched > 0, f"the paths launched K2 {p} at B={B} no "
                   "time")
-            qp = min(64, max(8, 1 << (B - 1).bit_length()))
+            qp, _ = k2_config(p, B)
             ptxas = k2_regs.get((p, qp), {})
             rows.append({
                 "name": f"streaming_matvec[{p},B={B}]", "route": "cuda",
@@ -1217,7 +1239,7 @@ def main() -> int:
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                 "library_ms": library_ms, "ms_warm_l2": warm_ms,
                 "ms_eager_call": call_ms, "shape": [Np, Mp], "batch": B,
-                "bytes": nbytes, "operations": ops,
+                "bytes": nbytes, "operations": ops, "ops_scheme": scheme,
                 "config": dict(k2_configs[(p, qp)], QP=qp),
                 "registers": ptxas.get("registers"),
                 "spill_stores": ptxas.get("spill_stores"),
@@ -1226,8 +1248,7 @@ def main() -> int:
                   f"{warm_ms * 1e3:.2f} us warm, {call_ms * 1e3:.2f} us per "
                   f"eager call; bound {bound * 1e3:.2f} us by {by} "
                   f"({nbytes} bytes at {HBM_BYTES_PER_S / 1e12} TB/s, "
-                  f"{ops} TF32 tensor-core operations at "
-                  f"{TF32_OPS_PER_S / 1e12:.0f} TFLOP/s); plain "
+                  f"{ops} tensor-core operations, {scheme}); plain "
                   f"{plain_ms * 1e3:.2f} us flushed"
                   + ("" if library_ms is None else
                      f"; X @ W.T (TF32 off) {library_ms * 1e3:.2f} us "
@@ -1285,10 +1306,9 @@ def main() -> int:
                     print(f"  K3 library call: {library_note}")
             nbytes = (nnzb * bs * bs * blocks.element_size()
                       + 4 * cols.numel() + 4 * B * (Mp + Np))
-            # as K2's: the split products on the TF32 tensor cores
-            ops_n = SPLIT_PRODUCTS[p] * 2 * B * nnzb * bs * bs
+            # as K2's: the cheapest split product on the tensor cores
+            ops_ms, ops_n, scheme = split_bound(p, B * nnzb * bs * bs)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops_n / TF32_OPS_PER_S * 1e3
             bound = max(bytes_ms, ops_ms)
             by = "bytes" if bytes_ms >= ops_ms else "operations"
             tile = k3_tiles[min(64, 1 << (B - 1).bit_length())]
@@ -1302,7 +1322,8 @@ def main() -> int:
                 "library_ms": library_ms, "ms_warm_l2": warm_ms,
                 "ms_eager_call": call_ms, "shape": list(blocks.shape),
                 "nonzero_blocks": nnzb, "batch": B, "bytes": nbytes,
-                "operations": ops_n, "library_note": library_note,
+                "operations": ops_n, "ops_scheme": scheme,
+                "library_note": library_note,
                 "tile": dict(zip(K3_TILE_KEYS, tile)),
                 "registers": ptxas.get("registers"),
                 "spill_stores": ptxas.get("spill_stores"),
@@ -1311,7 +1332,7 @@ def main() -> int:
                   f"{warm_ms * 1e3:.2f} us warm, {call_ms * 1e3:.2f} us per "
                   f"eager call; bound {bound * 1e3:.2f} us by {by} "
                   f"({nnzb} of {nb_r * mb} blocks, {nbytes} bytes, {ops_n} "
-                  f"TF32 tensor-core operations); plain "
+                  f"tensor-core operations, {scheme}); plain "
                   f"{plain_ms * 1e3:.2f} us flushed"
                   + ("" if library_ms is None else
                      f"; sparse BSR @ X (cuSPARSE) {library_ms * 1e3:.2f} "

@@ -20,7 +20,7 @@ import time
 from pathlib import Path
 
 __all__ = ["CSRC", "BUILD_ROOT", "NVCC_FLAGS", "sources", "load",
-           "build_all"]
+           "build_all", "compile_units"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -92,6 +92,23 @@ def build_all() -> dict:
             _finish(name, job)
     return {"seconds": time.perf_counter() - t0,
             "logs": {name: _logs.get(name, "(cached)") for name in jobs}}
+
+
+def compile_units(units: dict[str, tuple[Path, Path]]) -> dict[str, str]:
+    """Compile each named ``(source, library)`` pair with ``NVCC_FLAGS``,
+    one ``nvcc`` process each, all started together (for scripts that build
+    variants of a kernel source); returns each compiler log and raises if a
+    build fails."""
+    jobs = {name: subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, (src, lib) in units.items()}
+    logs = {name: proc.communicate()[0] for name, proc in jobs.items()}
+    for name, proc in jobs.items():
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name} (exit "
+                               f"{proc.returncode}):\n{logs[name]}")
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

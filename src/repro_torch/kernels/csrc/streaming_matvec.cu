@@ -34,14 +34,14 @@
 // The tensor core's adds inside a chained accumulator lose accuracy over a
 // long chain (about 6e-5 relative after 640 chained k-steps on the card;
 // tests/test_torch_split.py models it), so the mma accumulator restarts
-// from zero after every RESTART k-steps of 8 columns and is added into a
+// from zero after every kRestart k-steps of 8 columns and is added into a
 // float32 register sum with a plain FADD (about 1e-6 relative; PERF.md has
 // the card's figures).
 //
 // Design.  Y^T = W X^T as m16n8k8 TF32 mma.sync tiles: 16 rows of W on the
 // mma's M side, 8 queries on its N side (queries padded with zeros to a
 // multiple of 8: QP = 8, 16, 32 or 64 per CTA, more along the grid's y).
-//   * A CTA owns kRows = 16 * MT * WR rows of W and one of SPLITS = 8
+//   * A CTA owns kRows = 16 * MT * WR rows of W and one of kSplits = 8
 //     column ranges: the 8 CTAs of a row block form a thread block cluster
 //     and each sums its range of 32-column groups.  The row block's outputs
 //     are cut into 8 slices; the CTA that owns a slice adds the 8 partial
@@ -69,9 +69,9 @@
 //     of a row are contiguous; the same permutation is applied to W and X.
 //     Per (row, query): for each group in order, the 3 (or 2) products of
 //     each k-step in the order xs*wb, xb*ws, xb*wb (xs*w, xb*w), chained
-//     from zero through RESTART = 4 k-steps and then added into the running
+//     from zero through kRestart = 4 k-steps and then added into the running
 //     sum with one FADD; the 8 range partials are added in rank order.
-//     None of it depends on B, QP or the tile (only SPLITS and RESTART,
+//     None of it depends on B, QP or the tile (only kSplits and kRestart,
 //     which every configuration shares), so a query's result is the same
 //     bits alone or in a batch of any size, and no atomics are used, so a
 //     repeated call gives the same bits.  A NaN in one query's X reaches
@@ -93,31 +93,39 @@ namespace cg = cooperative_groups;
 constexpr int kMaxQueries = 64;
 constexpr int kGroup = 32;  // columns per group: 4 k-steps of 8
 
-// A launch's configuration: MT m-tiles of 16 rows per warp, WR x WQ warps
-// (WR across rows, WQ splitting the queries), ST ring stages of KG groups
+// The summation order, which every configuration shares, so that a query's
+// bits depend on neither the storage type's tile nor the batch size: the
+// columns are split into kSplits ranges (the cluster size), and the mma
+// accumulator restarts after every kRestart k-steps.  The library is built
+// with these values; scripts/k2_tile_sweep.py --probe builds the source
+// with others (K2_SPLITS, K2_RESTART; a restart of 0 chains the
+// accumulator through a CTA's range) to measure the split's error.
+#ifndef K2_SPLITS
+#define K2_SPLITS 8
+#endif
+#ifndef K2_RESTART
+#define K2_RESTART 4
+#endif
+constexpr int kSplits = K2_SPLITS, kRestart = K2_RESTART;
+static_assert(kRestart == 0 || kGroup / 8 % kRestart == 0,
+              "the restart divides a group");
+constexpr int kRestartEvery = kRestart > 0 ? kRestart : 1;  // a divisor
+
+// A launch's tile: MT m-tiles of 16 rows per warp, WR x WQ warps (WR
+// across rows, WQ splitting the queries), ST ring stages of KG groups
 // each, PF 1 to have each copy of W bring 256 bytes into L2 (the rest of
-// the row's segment is the next stage's), SPLITS column ranges (the
-// cluster size), the mma accumulator restarted after every RESTART
-// k-steps (0: never, chained through the CTA's range).  SPLITS and
-// RESTART set the summation order, so every storage type and batch size
-// takes the same; the rest is a tile.
-template <int MT_, int WR_, int WQ_, int ST_, int KG_, int PF_,
-          int SPLITS_, int RESTART_>
+// the row's segment is the next stage's).
+template <int MT_, int WR_, int WQ_, int ST_, int KG_, int PF_>
 struct Cfg {
   static constexpr int MT = MT_, WR = WR_, WQ = WQ_, ST = ST_, KG = KG_;
-  static constexpr int PF = PF_, SPLITS = SPLITS_, RESTART = RESTART_;
+  static constexpr int PF = PF_;
   static constexpr int kThreads = 32 * WR * WQ;
   static constexpr int kRows = 16 * MT * WR;
   static constexpr int kChunks = 8 * KG;  // 4-element chunks of a stage row
-  static_assert(RESTART == 0 || RESTART == 1 || RESTART == 2 ||
-                    RESTART == 4,
-                "the restart divides a group");
   static_assert(kThreads % kChunks == 0 &&
                     kRows % (kThreads / kChunks) == 0,
                 "uneven W copies");
 };
-
-constexpr int kSplits = 8, kRestart = 4;
 
 // The configuration of each storage type and batch size (QP queries per
 // CTA), the fastest or within noise of it in scripts/k2_tile_sweep.py on
@@ -131,9 +139,9 @@ struct Chosen {
   static constexpr int kKG = 4 / static_cast<int>(sizeof(T));
   using type = std::conditional_t<
       QP <= 16,
-      Cfg<2, 4, 1, kKG == 4 ? 2 : 3, kKG, kKG == 1, kSplits, kRestart>,
-      std::conditional_t<QP == 32, Cfg<2, 4, 1, 3, 1, 0, kSplits, kRestart>,
-                         Cfg<2, 2, 2, 3, 1, 0, kSplits, kRestart>>>;
+      Cfg<2, 4, 1, kKG == 4 ? 2 : 3, kKG, kKG == 1>,
+      std::conditional_t<QP == 32, Cfg<2, 4, 1, 3, 1, 0>,
+                         Cfg<2, 2, 2, 3, 1, 0>>>;
 };
 
 // Shared memory of one launch: the W ring (ST stages of kRows rows of KG
@@ -281,8 +289,7 @@ __global__ void __launch_bounds__(C::kThreads, 1)
 streaming_matvec_kernel(const T* __restrict__ W, const float* __restrict__ X,
                         float* __restrict__ Y, int N, int M, int B) {
   using L = Layout<T, QP, C>;
-  constexpr int MT = C::MT, ST = C::ST, KG = C::KG, S = C::SPLITS;
-  constexpr int R = C::RESTART;
+  constexpr int MT = C::MT, ST = C::ST, KG = C::KG, S = kSplits;
   constexpr int NT = QP / 8 / C::WQ;  // a warp's n-tiles of 8 queries
   static_assert(NT * 8 * C::WQ == QP, "the warps split the queries");
   constexpr int kT = C::kThreads, RC = C::kRows;
@@ -381,7 +388,7 @@ streaming_matvec_kernel(const T* __restrict__ W, const float* __restrict__ X,
   };
 
   // acc: the float32 running sums; c: the mma accumulators, added into
-  // acc and restarted from zero after every R k-steps
+  // acc and restarted from zero after every kRestart k-steps
   float acc[MT][NT][4], c[MT][NT][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -460,7 +467,7 @@ streaming_matvec_kernel(const T* __restrict__ W, const float* __restrict__ X,
         if constexpr (kSplitW) mma_all(wsm, xb, s2);
         mma_all(wb, xb, s2);
         const int s = 2 * half + s2;  // the k-step in the group
-        if (R > 0 && (s + 1) % (R > 0 ? R : 1) == 0) {
+        if (kRestart > 0 && (s + 1) % kRestartEvery == 0) {
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -562,14 +569,14 @@ cudaError_t launch(const void* W, const float* X, float* Y, int N, int M,
     if (err != cudaSuccess) return err;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((N + C::kRows - 1) / C::kRows) * C::SPLITS,
+  cfg.gridDim = dim3(((N + C::kRows - 1) / C::kRows) * kSplits,
                      (B + QP - 1) / QP);
   cfg.blockDim = dim3(C::kThreads);
   cfg.dynamicSmemBytes = L::kBytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C::SPLITS;
+  attr[0].val.clusterDim.x = kSplits;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -636,17 +643,17 @@ int streaming_matvec_launch(int dtype, const void* W, const void* X, void* Y,
 }
 
 // The configuration a batch of B queries with storage type code dtype
-// takes: QP, then MT, WR, WQ, ST, KG, PF, SPLITS, RESTART, then the rows
-// per CTA and its threads, into out[0 .. 10].  For reports; returns the
-// cudaError_t of an unknown code, else 0.
+// takes: QP, then its tile MT, WR, WQ, ST, KG, PF, then the summation
+// order kSplits, kRestart, then the rows per CTA and its threads, into
+// out[0 .. 10].  For reports; returns the cudaError_t of an unknown code,
+// else 0.
 int streaming_matvec_config(int dtype, int B, int* out) {
   return static_cast<int>(with_type(dtype, [&](auto t) {
     return with_qp(B, [&](auto qp) {
       constexpr int QP = decltype(qp)::value;
       using C = typename Chosen<decltype(t), QP>::type;
-      const int v[] = {QP,        C::MT,      C::WR,    C::WQ,
-                       C::ST,     C::KG,      C::PF,    C::SPLITS,
-                       C::RESTART, C::kRows,  C::kThreads};
+      const int v[] = {QP,    C::MT,   C::WR,    C::WQ,    C::ST,      C::KG,
+                       C::PF, kSplits, kRestart, C::kRows, C::kThreads};
       for (int i = 0; i < 11; ++i) out[i] = v[i];
       return cudaSuccess;
     });

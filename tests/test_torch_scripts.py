@@ -1,8 +1,10 @@
 """The card scripts on the CPU: ``chip_smoke.py`` and
 ``scripts/k2_tile_sweep.py`` refuse to run without a card (non-zero exit,
-no result line), and ``chip_smoke.py`` reads the registers and spills of
-every instantiation of the streaming matvec kernel (K2) from an
-``nvcc -Xptxas -v`` log."""
+no result line), ``chip_smoke.py`` refuses to run outside the repository,
+reads the registers and spills of every instantiation of the streaming
+matvec kernel (K2) from an ``nvcc -Xptxas -v`` log, and bounds K2's and
+K3's operations by the cheapest float32-accurate split product on the
+tensor cores."""
 import os
 import subprocess
 import sys
@@ -27,7 +29,7 @@ def _log(entries):
     for p, qp, regs, st, ld in entries:
         fn = ("_ZN52_GLOBAL__N__c1987883_19_streaming_matvec_cu_6cda7f82"
               f"23streaming_matvec_kernelI{MANGLED[p]}Li{qp}ENS_3CfgILi2ELi2"
-              "ELi2ELi3ELi1ELi8ELi4EEEEEvPKT_PKfPfiii")
+              "ELi2ELi3ELi1ELi0EEEEEvPKT_PKfPfiii")
         lines += [f"ptxas info    : Compiling entry function '{fn}' for "
                   "'sm_90a'",
                   f"ptxas info    : Function properties for {fn}",
@@ -69,15 +71,37 @@ def test_chip_smoke_fails_without_a_card(no_card):
     assert "CUDA is not available" in out.stderr
 
 
-def test_chip_smoke_alone_fails(no_card, tmp_path):
+def test_chip_smoke_alone_fails(tmp_path):
     (tmp_path / "chip_smoke.py").write_text(
         (ROOT / "chip_smoke.py").read_text())
     out = _run(["chip_smoke.py"], tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+    assert "repro_torch not found" in out.stderr
 
 
 def test_k2_tile_sweep_fails_without_a_card(no_card):
     out = _run(["scripts/k2_tile_sweep.py", "--probe"], ROOT)
     assert out.returncode != 0
     assert "CUDA is not available" in out.stderr
+
+
+# (storage type, the cheapest scheme): float32 W takes 3 TF32 products per
+# term (6 on bf16 take a little longer); bf16 and int8 W are
+# exact in bf16, so X in 3 bf16 parts at twice TF32's rate beats 2 TF32
+# products; f16 W is not exact in bf16 and keeps 2 TF32 products
+@pytest.mark.parametrize("storage,scheme,products,rate", [
+    ("f32", "3 x tf32", 3, chip_smoke.TF32_OPS_PER_S),
+    ("bf16", "3 x bf16", 3, chip_smoke.BF16_OPS_PER_S),
+    ("f16", "2 x tf32", 2, chip_smoke.TF32_OPS_PER_S),
+    ("int8", "3 x bf16", 3, chip_smoke.BF16_OPS_PER_S)])
+def test_split_bound_takes_the_cheapest_scheme(storage, scheme, products,
+                                                rate):
+    terms = 64 * 5120 * 5120
+    ms, ops, got = chip_smoke.split_bound(storage, terms)
+    assert got == scheme
+    assert ops == 2 * products * terms
+    assert ms == pytest.approx(ops / rate * 1e3, rel=1e-12)
+    # no scheme of the table is cheaper than the one taken
+    assert all(ms <= 2 * k * terms / r * 1e3
+               for k, _, r in chip_smoke.SPLIT_SCHEMES[storage])
