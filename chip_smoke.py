@@ -12,8 +12,10 @@ result line):
 
 1. setup: the card's name and power limit, the versions, TF32 off, the
    kernel build (timed), and the registers and spills ptxas reports for
-   every instantiation of K2 (storage type x queries per CTA, none may
-   spill) and of K3 (storage type x tile);
+   every instantiation of K1 and K4 (storage type x K1 with and without
+   row scales, K4 on its shared and its peeled path; none may spill), of
+   K2 (storage type x queries per CTA, none may spill) and of K3 (storage
+   type x tile);
 2. every kernel against its plain PyTorch version on the card, for every
    storage dtype, at small shapes (unpadded ones included) and at the main
    paths' shapes, and two calls bit-identical: K1, the fused step; K2, the
@@ -56,10 +58,11 @@ result line):
 4. times on the card (CUDA events, medians) beside each kernel's bound:
    the kernel, its plain version and the library call each with the L2
    cache flushed before the call, and the kernel back to back as well
-   (K2's and K3's rows carry the configuration each batch size takes and
-   its registers and spills; K2's and K3's bounds count the cheapest
-   float32-accurate split product on the tensor cores (``SPLIT_SCHEMES``),
-   K2's launches are those of its batch size on the paths above, by step);
+   (every row carries the configuration its kernel takes, for K2 and K3
+   by batch size, and its registers and spills; K2's and K3's bounds
+   count the cheapest float32-accurate split product on the tensor cores
+   (``SPLIT_SCHEMES``), K2's launches are those of its batch size on the
+   paths above, by step);
    the serve flush's p50 / p95 and the landmark build time;
    ``run(100)`` and ``run_tol`` on every tier, ``bsr`` included; and the
    two paths K3 serves at B >= 8, each with its exact K3 launch count:
@@ -159,6 +162,11 @@ K3_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16",
 K3_TILE_KEYS = ("RL", "QW", "WR", "WQ", "ST")
 K2_CONFIG_KEYS = ("MT", "WR", "WQ", "ST", "KG", "PF", "SPLITS", "RESTART")
 K2_BATCHES = (1, 8, 64)
+# K1's and K4's core configuration, and the kernels of each: K1 with and
+# without row scales, K4 on its shared (aligned) and its peeled path
+STEP_CONFIG_KEYS = ("R", "D", "L")
+STEP_VARIANTS = {("K1", False): "no scales", ("K1", True): "row scales",
+                 ("K4", True): "shared path", ("K4", False): "peeled path"}
 
 
 def ptxas_report(log: str) -> dict:
@@ -203,6 +211,23 @@ def k2_instantiations(log: str) -> dict:
         m = re.search(r"streaming_matvec_kernelI(\w+?)Li(\d+)ENS_3CfgI", fn)
         if m:
             out[(K3_TYPES[m.group(1)], int(m.group(2)))] = info
+    return out
+
+
+def step_instantiations(log: str) -> dict:
+    """K1's and K4's kernels in their build log: (kernel, storage type,
+    (R, D, L), variant) -> registers and spills; the variant is K1's row
+    scales or K4's shared (aligned) path."""
+    out = {}
+    for fn, info in ptxas_report(log).items():
+        for kernel, name in (("K1", "17fused_step_kernel"),
+                             ("K4", "11step_kernel")):
+            m = re.search(name + r"I(\w+?)NS\d*_3CfgI"
+                          + r"Li(\d+)E" * 3 + r"EELb([01])E", fn)
+            if m:
+                cfg = tuple(int(v) for v in m.groups()[1:4])
+                out[(kernel, K3_TYPES[m.group(1)], cfg,
+                     m.group(5) == "1")] = info
     return out
 
 
@@ -457,12 +482,35 @@ def main() -> int:
     built = _build.build_all()
     print(f"kernel build: {built['seconds']:.2f} s "
           f"({', '.join(_build.sources())})")
-    for name, log in built["logs"].items():
-        if name in ("bsr_spmv", "streaming_matvec"):
-            continue
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    # K1 and K4: the configuration each storage type takes, and every
+    # instantiation's registers and spills (none may spill)
+    step_lib = _build.load("pagerank_step")
+    step_lib.pagerank_step_config.argtypes = (ctypes.c_int, ctypes.c_void_p)
+
+    def step_config(p):
+        """The core's configuration (R, D, L) for storage type p."""
+        out = (ctypes.c_int * 3)()
+        check(step_lib.pagerank_step_config(PRECISIONS.index(p), out) == 0,
+              f"no K1 / K4 configuration for {p}")
+        return tuple(out)
+
+    step_configs = {p: step_config(p) for p in PRECISIONS}
+    step_regs = step_instantiations(built["logs"]["pagerank_step"])
+    fresh = built["logs"]["pagerank_step"] != "(cached)"
+    for (kernel, variant), what in STEP_VARIANTS.items():
+        for p in PRECISIONS:
+            info = step_regs.get((kernel, p, step_configs[p], variant))
+            check(info is not None or not fresh,
+                  f"{kernel} {p} {what}: not in the ptxas log")
+            check(info is None or info["spill_stores"] + info["spill_loads"]
+                  == 0, f"{kernel} {p} {what} spills: {info}")
+            desc = " ".join(f"{k}{v}" for k, v in zip(STEP_CONFIG_KEYS,
+                                                       step_configs[p]))
+            print(f"  pagerank_step {kernel} {p} {what} {desc}: "
+                  + ("(cached build)" if info is None else
+                     f"{info['registers']} registers, "
+                     f"{info['spill_stores']} bytes spill stores, "
+                     f"{info['spill_loads']} bytes spill loads"))
     # K2: the configuration each batch size takes, and each
     # instantiation's registers and spills (none may spill)
     k2_lib = _build.load("streaming_matvec")
@@ -1149,6 +1197,16 @@ def main() -> int:
           "'warm': back to back, as run(100) sees it):")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     rows = []
+
+    def step_row(p, kernel, variant):
+        """The core's configuration for K1 / K4 at storage type p, and the
+        registers and spills of the instantiation the path runs."""
+        info = step_regs.get((kernel, p, step_configs[p], variant), {})
+        return {"config": dict(zip(STEP_CONFIG_KEYS, step_configs[p])),
+                "registers": info.get("registers"),
+                "spill_stores": info.get("spill_stores"),
+                "spill_loads": info.get("spill_loads")}
+
     for p in PRECISIONS:
         eng = engines[p]
         Hp, dangp = eng.operands
@@ -1188,14 +1246,18 @@ def main() -> int:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms, "ms_warm_l2": warm_ms,
             "ms_eager_call": call_ms,
-            "shape": [Np, Mp], "bytes": nbytes})
+            "shape": [Np, Mp], "bytes": nbytes,
+            **step_row(p, "K1", scales is not None)})
         print(f"  K1 {p}: {ms * 1e3:.2f} us/step flushed, "
               f"{warm_ms * 1e3:.2f} us warm, {call_ms * 1e3:.2f} us per "
               f"eager call; bound {max(bytes_ms, ops_ms) * 1e3:.2f} us "
               f"({nbytes} bytes at {HBM_BYTES_PER_S / 1e12} TB/s); plain "
               f"{plain_ms * 1e3:.2f} us flushed"
               + ("" if library_ms is None
-                 else f"; torch.addmv {library_ms * 1e3:.2f} us flushed"))
+                 else f"; torch.addmv {library_ms * 1e3:.2f} us flushed")
+              + f"; {rows[-1]['config']}, {rows[-1]['registers']} registers, "
+              f"{rows[-1]['spill_stores']} / {rows[-1]['spill_loads']} bytes "
+              "spilled (stores / loads)")
     rng = np.random.default_rng(SEED + 1)
     for p in PRECISIONS:
         W = engines[p].operands[0]
@@ -1376,13 +1438,16 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": library_ms, "ms_warm_l2": warm_ms,
             "ms_eager_call": call_ms, "shape": [N_NODES, N_NODES],
-            "bytes": nbytes})
+            "bytes": nbytes, **step_row(p, "K4", True)})
         print(f"  K4 {p}: {ms * 1e3:.2f} us flushed, {warm_ms * 1e3:.2f} us "
               f"warm, {call_ms * 1e3:.2f} us per eager call; bound "
               f"{bound * 1e3:.2f} us by {by} ({nbytes} bytes); plain "
               f"{plain_ms * 1e3:.2f} us flushed"
               + ("" if library_ms is None
-                 else f"; torch.addmv {library_ms * 1e3:.2f} us flushed"))
+                 else f"; torch.addmv {library_ms * 1e3:.2f} us flushed")
+              + f"; {rows[-1]['config']}, {rows[-1]['registers']} registers, "
+              f"{rows[-1]['spill_stores']} / {rows[-1]['spill_loads']} bytes "
+              "spilled (stores / loads)")
     del flush
 
     tiers = {"dense": dense, "ell": ell, "fused_dense": fused}
@@ -1485,7 +1550,12 @@ def main() -> int:
                           for (p, qp), info in k2_regs.items()],
                       "k3_ptxas": [
                           {"storage": p, "tile": dict(zip(K3_TILE_KEYS, t)),
-                           **info} for (p, t), info in k3_regs.items()]}))
+                           **info} for (p, t), info in k3_regs.items()],
+                      "step_ptxas": [
+                          {"kernel": k, "storage": p,
+                           "variant": STEP_VARIANTS[(k, v)],
+                           **dict(zip(STEP_CONFIG_KEYS, c)), **info}
+                          for (k, p, c, v), info in step_regs.items()]}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

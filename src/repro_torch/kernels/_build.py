@@ -79,19 +79,32 @@ def _finish(name: str, job) -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    _log_path(out).write_text(log)
     os.replace(tmp, out)
+
+
+def _log_path(lib: Path) -> Path:
+    """Where the compiler log of a built library is kept beside it."""
+    return lib.with_suffix(".log")
+
+
+def _cached_log(name: str) -> str:
+    log = _log_path(_target(name))
+    return log.read_text() if log.exists() else "(cached)"
 
 
 def build_all() -> dict:
     """Build every kernel source in parallel; returns the seconds taken and
-    each build's compiler log (``-Xptxas -v``: registers, spills)."""
+    each build's compiler log (``-Xptxas -v``: registers, spills), kept
+    beside the library, so a cached build reports it too."""
     t0 = time.perf_counter()
     jobs = {name: _start(name) for name in sources()}
     for name, job in jobs.items():
         if job is not None:
             _finish(name, job)
     return {"seconds": time.perf_counter() - t0,
-            "logs": {name: _logs.get(name, "(cached)") for name in jobs}}
+            "logs": {name: _logs.get(name) or _cached_log(name)
+                     for name in jobs}}
 
 
 def compile_units(units: dict[str, tuple[Path, Path]]) -> dict[str, str]:

@@ -1,6 +1,6 @@
 // Loads of a matrix stored as float32, bfloat16, float16 or int8, upcast to
 // float32: shared by the streaming matvec (K2), the BSR SpMV (K3) and the
-// unpadded PageRank step (K4).
+// PageRank steps (K1 and K4: the int8 upcast and the scalar loads).
 //
 //   Vec4<T>:   four consecutive elements, loaded as raw storage bits (one
 //              16-, 8- or 4-byte load by type) and upcast only where they

@@ -34,7 +34,7 @@ __all__ = ["pagerank_step_fused", "pagerank_step", "pad_pagerank_operands",
 _DTYPES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"),
            torch.float16: (2, "f16"), torch.int8: (3, "int8")}
 
-# rows one CTA of the kernel owns (kRowsPerBlock in the source)
+# rows one CTA of either kernel owns (kRowsPerCta in the source)
 ROWS_PER_CTA = 8
 # padding multiple of pad_pagerank_operands
 PAD = 256
@@ -63,8 +63,7 @@ def _library():
         lib.pagerank_step_fused_launch.restype = ctypes.c_int
         lib.pagerank_step_launch.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 4
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-               ctypes.c_void_p])
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         lib.pagerank_step_launch.restype = ctypes.c_int
         lib.pagerank_step_fused_rows_per_block.argtypes = []
         lib.pagerank_step_fused_rows_per_block.restype = ctypes.c_int
@@ -154,9 +153,12 @@ def pagerank_step(H: torch.Tensor, pr: torch.Tensor, t, *,
     ``H``: (N, M) float32, bfloat16, float16 or int8, contiguous; ``pr``:
     (M,) float32; ``t``: the float32 teleport-plus-leak scalar (a 0-dim or
     1-element tensor, kept on the device; a Python number is placed
-    there).  Any N and M are taken: when M is a multiple of 4 and H is
-    aligned to 4 elements the kernel loads 4 elements per lane and step,
-    otherwise one; H is never padded or copied.
+    there).  Any N and M are taken, at any element alignment, and H is
+    never padded or copied: when a row of H is a multiple of 16 bytes and
+    H and ``pr`` are 16-byte aligned, the rows of a warp stream together
+    and share each load of ``pr``; otherwise each row loads a head and a
+    tail of single elements around a 16-byte-aligned body, and ``pr`` is
+    read a float at a time.
     """
     _check_step(H.dim() == 2 and pr.dim() == 1 and pr.shape[0] == H.shape[1],
            f"H {tuple(H.shape)} and pr {tuple(pr.shape)} must be (N, M) "
@@ -178,14 +180,12 @@ def pagerank_step(H: torch.Tensor, pr: torch.Tensor, t, *,
     N, M = H.shape
     _check_step(N > 0 and M > 0, "empty operand")
     pr, t = pr.contiguous(), t.contiguous()
-    vec = (M % 4 == 0 and H.data_ptr() % (4 * H.element_size()) == 0
-           and pr.data_ptr() % 16 == 0)
     lib = _library()
     code, name = _DTYPES[H.dtype]
     y = torch.empty((N,), dtype=torch.float32, device=dev)
     err = lib.pagerank_step_launch(
         code, H.data_ptr(), pr.data_ptr(), t.data_ptr(), y.data_ptr(), N, M,
-        float(d), int(vec), torch.cuda.current_stream(dev).cuda_stream)
+        float(d), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pagerank_step launch failed: cudaError_t {err}")
     step_launches[name] += 1

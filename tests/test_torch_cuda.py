@@ -65,7 +65,8 @@ def _case(Np, Mp, precision, dev, seed=0):
 
 
 @pytest.mark.parametrize("precision", list(STORE))
-@pytest.mark.parametrize("Np,Mp", [(256, 256), (512, 768), (5120, 5120)])
+@pytest.mark.parametrize("Np,Mp", [(256, 256), (512, 768), (5120, 5120),
+                                   (k1.ROWS_PER_CTA, 512)])
 def test_kernel_matches_plain(cuda, Np, Mp, precision):
     Hp, xp, dangp, t, scales = _case(Np, Mp, precision, cuda)
     before = k1.launches[precision]
@@ -366,7 +367,8 @@ def test_bsr_spmv_rejects_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.parametrize("precision", list(STORE))
 @pytest.mark.parametrize("N,M", [(300, 130), (257, 1001), (1000, 1000),
-                                 (5000, 5000)])
+                                 (5000, 5000), (7, 130), (5, 1), (9, 3),
+                                 (300, 5001)])
 def test_pagerank_step_matches_plain(cuda, N, M, precision):
     rng = np.random.default_rng(N + M)
     H = rng.random((N, M), dtype=np.float32) * (2.0 / M)
@@ -393,6 +395,61 @@ def test_pagerank_step_matches_plain(cuda, N, M, precision):
     flat[1:] = pr
     torch.testing.assert_close(k1.pagerank_step(Ht, flat[1:], t, d=0.85),
                                ref, **TIGHT)
+    # H as a view at an element offset (rows off their 16-byte alignment)
+    store = torch.empty(N * M + 1, dtype=Ht.dtype, device=cuda)
+    Hv = store[1:].view(N, M)
+    Hv.copy_(Ht)
+    y_off = k1.pagerank_step(Hv, pr, t, d=0.85)
+    torch.testing.assert_close(y_off, ref, **TIGHT)
+    assert torch.equal(k1.pagerank_step(Hv, pr, t, d=0.85), y_off)
+
+
+@pytest.mark.parametrize("precision", list(STORE))
+@pytest.mark.parametrize("kernel,N,M", [("K1", 512, 768), ("K4", 1000, 1000),
+                                        ("K4", 257, 1001)])
+def test_step_nan_in_x_reaches_every_row(cuda, kernel, N, M, precision):
+    """A NaN in one entry of x reaches every row, padded ones included
+    (0 * NaN is NaN), as in the plain version."""
+    H, x, dang, t, scales = _case(N, M, precision, cuda, seed=N + M)
+    x[0, M // 3] = float("nan")
+    if kernel == "K1":
+        y, leak = k1.pagerank_step_fused(H, x, dang, t, scales)
+        ref, ref_leak = pagerank_step_fused_ref(H, x, dang, t, scales)
+        assert torch.isnan(leak) and torch.isnan(ref_leak)
+    else:
+        y = k1.pagerank_step(H, x[0], t)
+        ref = pagerank_step_ref(H, x[0], t)
+    torch.cuda.synchronize()
+    assert torch.isnan(ref).all()
+    assert torch.isnan(y).all()
+
+
+@pytest.mark.parametrize("precision", list(STORE))
+def test_fused_steps_replayed_from_a_graph_match_eager(cuda, precision):
+    """100 K1 steps with the leak fed back, as run(100) takes them, give
+    the same bits replayed from a CUDA graph (twice) as eagerly."""
+    n = 512
+    Hp, xp, dangp, t, scales = _case(n, n, precision, cuda, seed=7)
+
+    def steps(x, tt):
+        for _ in range(100):
+            x, leak = k1.pagerank_step_fused(Hp, x, dangp, tt, scales)
+            tt = 0.85 * leak / n + 0.15 / n
+        return x, tt
+
+    want = steps(xp, t)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        steps(xp, t)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = steps(xp, t)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_pagerank_iteration_loop_on_card(cuda):

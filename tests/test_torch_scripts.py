@@ -1,9 +1,10 @@
-"""The card scripts on the CPU: ``chip_smoke.py`` and
-``scripts/k2_tile_sweep.py`` refuse to run without a card (non-zero exit,
-no result line), ``chip_smoke.py`` refuses to run outside the repository,
-reads the registers and spills of every instantiation of the streaming
-matvec kernel (K2) from an ``nvcc -Xptxas -v`` log, and bounds K2's and
-K3's operations by the cheapest float32-accurate split product on the
+"""The card scripts on the CPU: ``chip_smoke.py``,
+``scripts/k2_tile_sweep.py`` and ``scripts/step_tile_sweep.py`` refuse to
+run without a card (non-zero exit, no result line), ``chip_smoke.py``
+refuses to run outside the repository, reads the registers and spills of
+every instantiation of the streaming matvec kernel (K2) and of the
+PageRank steps (K1, K4) from an ``nvcc -Xptxas -v`` log, and bounds K2's
+and K3's operations by the cheapest float32-accurate split product on the
 tensor cores."""
 import os
 import subprocess
@@ -22,6 +23,15 @@ MANGLED = {"f32": "f", "bf16": "13__nv_bfloat16", "f16": "6__half",
            "int8": "a"}
 
 
+def _ptxas(fn, regs, st, ld):
+    """The lines ``nvcc -Xptxas -v`` prints for one kernel."""
+    return [f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'",
+            f"ptxas info    : Function properties for {fn}",
+            f"    0 bytes stack frame, {st} bytes spill stores, {ld} bytes "
+            "spill loads",
+            f"ptxas info    : Used {regs} registers, used 1 barriers"]
+
+
 def _log(entries):
     """An ``nvcc -Xptxas -v`` log of K2 instantiations: (storage type,
     queries per CTA, registers, spill stores, spill loads)."""
@@ -30,13 +40,21 @@ def _log(entries):
         fn = ("_ZN52_GLOBAL__N__c1987883_19_streaming_matvec_cu_6cda7f82"
               f"23streaming_matvec_kernelI{MANGLED[p]}Li{qp}ENS_3CfgILi2ELi2"
               "ELi2ELi3ELi1ELi0EEEEEvPKT_PKfPfiii")
-        lines += [f"ptxas info    : Compiling entry function '{fn}' for "
-                  "'sm_90a'",
-                  f"ptxas info    : Function properties for {fn}",
-                  f"    0 bytes stack frame, {st} bytes spill stores, {ld} "
-                  "bytes spill loads",
-                  f"ptxas info    : Used {regs} registers, used 1 barriers"]
+        lines += _ptxas(fn, regs, st, ld)
     return "\n".join(lines)
+
+
+def _step_log(storage):
+    """A log of K1 (with row scales) and K4 (peeled path) at
+    Cfg<4, 4, 1>, and of the leak reduce, which is neither."""
+    ns = "_ZN49_GLOBAL__N__2b3a51c7_16_pagerank_step_cu_9e1f0a41"
+    k1 = (f"{ns}17fused_step_kernelI{MANGLED[storage]}NS_3CfgILi4ELi4ELi1EE"
+          "ELb1EEEvPKT_PKfS7_S7_S7_PfS8_if")
+    k4 = (f"{ns}11step_kernelI{MANGLED[storage]}NS_3CfgILi4ELi4ELi1EEELb0EE"
+          "EvPKT_PKfS7_Pfiif")
+    reduce_ = f"{ns}18leak_reduce_kernelEPKfiPf"
+    return "\n".join(_ptxas(k1, 96, 0, 0) + _ptxas(k4, 40, 8, 4)
+                     + _ptxas(reduce_, 12, 0, 0))
 
 
 @pytest.mark.parametrize("storage", list(MANGLED))
@@ -50,6 +68,19 @@ def test_k2_instantiations_from_the_ptxas_log(storage):
                         "spill_loads": 8}}
     # K3's reader takes none of them
     assert chip_smoke.k3_instantiations(_log(entries)) == {}
+
+
+@pytest.mark.parametrize("storage", list(MANGLED))
+def test_step_instantiations_from_the_ptxas_log(storage):
+    got = chip_smoke.step_instantiations(_step_log(storage))
+    assert got == {
+        ("K1", storage, (4, 4, 1), True): {
+            "registers": 96, "spill_stores": 0, "spill_loads": 0},
+        ("K4", storage, (4, 4, 1), False): {
+            "registers": 40, "spill_stores": 8, "spill_loads": 4}}
+    # the K2 and K3 readers take none of them
+    assert chip_smoke.k2_instantiations(_step_log(storage)) == {}
+    assert chip_smoke.k3_instantiations(_step_log(storage)) == {}
 
 
 def _run(args, cwd):
@@ -82,6 +113,12 @@ def test_chip_smoke_alone_fails(tmp_path):
 
 def test_k2_tile_sweep_fails_without_a_card(no_card):
     out = _run(["scripts/k2_tile_sweep.py", "--probe"], ROOT)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+
+
+def test_step_tile_sweep_fails_without_a_card(no_card):
+    out = _run(["scripts/step_tile_sweep.py"], ROOT)
     assert out.returncode != 0
     assert "CUDA is not available" in out.stderr
 
