@@ -164,7 +164,7 @@ K2_CONFIG_KEYS = ("MT", "WR", "WQ", "ST", "KG", "PF", "SPLITS", "RESTART")
 K2_BATCHES = (1, 8, 64)
 # K1's and K4's core configuration, and the kernels of each: K1 with and
 # without row scales, K4 on its shared (aligned) and its peeled path
-STEP_CONFIG_KEYS = ("R", "D", "L")
+STEP_CONFIG_KEYS = ("R", "D")
 STEP_VARIANTS = {("K1", False): "no scales", ("K1", True): "row scales",
                  ("K4", True): "shared path", ("K4", False): "peeled path"}
 
@@ -216,18 +216,19 @@ def k2_instantiations(log: str) -> dict:
 
 def step_instantiations(log: str) -> dict:
     """K1's and K4's kernels in their build log: (kernel, storage type,
-    (R, D, L), variant) -> registers and spills; the variant is K1's row
+    (R, D), variant) -> registers and spills; the variant is K1's row
     scales or K4's shared (aligned) path."""
     out = {}
     for fn, info in ptxas_report(log).items():
         for kernel, name in (("K1", "17fused_step_kernel"),
                              ("K4", "11step_kernel")):
             m = re.search(name + r"I(\w+?)NS\d*_3CfgI"
-                          + r"Li(\d+)E" * 3 + r"EELb([01])E", fn)
+                          + r"Li(\d+)E" * len(STEP_CONFIG_KEYS)
+                          + r"EELb([01])E", fn)
             if m:
-                cfg = tuple(int(v) for v in m.groups()[1:4])
+                cfg = tuple(int(v) for v in m.groups()[1:-1])
                 out[(kernel, K3_TYPES[m.group(1)], cfg,
-                     m.group(5) == "1")] = info
+                     m.group(m.lastindex) == "1")] = info
     return out
 
 
@@ -488,8 +489,8 @@ def main() -> int:
     step_lib.pagerank_step_config.argtypes = (ctypes.c_int, ctypes.c_void_p)
 
     def step_config(p):
-        """The core's configuration (R, D, L) for storage type p."""
-        out = (ctypes.c_int * 3)()
+        """The core's configuration (R, D) for storage type p."""
+        out = (ctypes.c_int * len(STEP_CONFIG_KEYS))()
         check(step_lib.pagerank_step_config(PRECISIONS.index(p), out) == 0,
               f"no K1 / K4 configuration for {p}")
         return tuple(out)

@@ -8,9 +8,8 @@ Run from the repository root:
 
 ``src/repro_torch/kernels/csrc/pagerank_step.cu`` runs the fused step (K1)
 and the unpadded step (K4) on one row-streaming core whose configuration
-``Cfg<R, D, L>`` is R rows per warp, a register ring D steps deep and the
-load of H (L 1: ``L1::no_allocate`` with a 256-byte L2 fetch; L 0:
-``__ldg``); ``Chosen`` there picks one per storage type.  This script
+``Cfg<R, D>`` is R rows per warp and a register ring D steps deep;
+``Chosen`` there picks one per storage type.  This script
 instantiates the candidates below from that same source (one translation
 unit per storage type that includes it, built with ``nvcc`` into
 ``build/step_tile_sweep/``, all in parallel) and, for each storage type:
@@ -26,11 +25,9 @@ unit per storage type that includes it, built with ``nvcc`` into
   of H once (``torch.sum`` over them as float32).  The chosen
   configuration and that reduction are also timed after an L2 eviction
   that leaves no dirty line (a read of 256 MiB instead of a write), which
-  shows what the written-back flush costs a flushed call.  K1's leak
-  reduce is timed as a programmatic dependent launch and, for the chosen
-  configuration, as an ordinary launch too.  First, both wrappers are
-  timed at a tiny shape (7 x 130 and 8 x 512, f32), which is what a call
-  costs beyond its bytes.
+  shows what the written-back flush costs a flushed call.  First, both
+  wrappers are timed at a tiny shape (7 x 130 and 8 x 512, f32), which is
+  what a call costs beyond its bytes.
 * ``--parent DIR``: also builds ``DIR``'s ``pagerank_step.cu`` (an
   unpacked earlier commit: K4's C entry with or without the ``vec``
   argument of the design before this core) and times its K1 and K4 the
@@ -65,12 +62,10 @@ TYPES = {"f32": "float", "bf16": "__nv_bfloat16", "f16": "__half",
          "int8": "int8_t"}
 SOURCE = Path("src") / "repro_torch" / "kernels" / "csrc" / \
     "pagerank_step.cu"
-# (R, D, L): rows per warp (R divides the CTA's 8 rows), ring depth, load
-CANDIDATES = [
-    (4, 4, 1), (4, 4, 0), (4, 2, 1), (4, 8, 1), (2, 4, 1), (2, 8, 1),
-    (8, 2, 1), (8, 4, 1), (1, 8, 1),
-]
-KEYS = ("R", "D", "L")
+# (R, D): rows per warp (R divides the CTA's 8 rows), ring depth
+CANDIDATES = [(4, 4), (4, 2), (4, 8), (2, 4), (2, 8), (8, 2), (8, 4),
+              (1, 8)]
+KEYS = ("R", "D")
 K4_SHAPE, K1_SHAPE, DAMPING = (5000, 5000), (5120, 5120), 0.85
 # K4's ragged checks: N below the SM count, a row pitch that is not a
 # multiple of 16 bytes, and H at an element offset (the peeled path)
@@ -78,20 +73,20 @@ RAGGED = ((7, 130, 0), (300, 5001, 0), (300, 136, 1))
 
 
 def translation_unit(ctype: str) -> str:
-    """The kernel source with ``sweep_k1(i, pdl, ...)`` and
-    ``sweep_k4(i, ...)`` that launch candidate i for storage ``ctype``."""
+    """The kernel source with ``sweep_k1(i, ...)`` and ``sweep_k4(i, ...)``
+    that launch candidate i for storage ``ctype``."""
     k1 = "\n".join(
         f"    case {i}: return static_cast<int>(launch_fused<{ctype}, "
-        f"Cfg<{r}, {d}, {ld}>>(H, X, DG, T, S, Y, P, LK, Np, Mp, d, pdl != 0,"
-        " st));" for i, (r, d, ld) in enumerate(CANDIDATES))
+        f"Cfg<{r}, {d}>>(H, X, DG, T, S, Y, P, LK, Np, Mp, d, st));"
+        for i, (r, d) in enumerate(CANDIDATES))
     k4 = "\n".join(
         f"    case {i}: return static_cast<int>(launch_unpadded<{ctype}, "
-        f"Cfg<{r}, {d}, {ld}>>(H, X, T, Y, N, M, d, st));"
-        for i, (r, d, ld) in enumerate(CANDIDATES))
+        f"Cfg<{r}, {d}>>(H, X, T, Y, N, M, d, st));"
+        for i, (r, d) in enumerate(CANDIDATES))
     return f'''#include "{ROOT / SOURCE}"
 
 #define F(p) static_cast<const float*>(p)
-extern "C" int sweep_k1(int i, int pdl, const void* H, const void* x,
+extern "C" int sweep_k1(int i, const void* H, const void* x,
                         const void* dang, const void* t, const void* s,
                         void* y, void* p, void* leak, int Np, int Mp,
                         float d, void* stream) {{
@@ -141,7 +136,7 @@ def build(parent: Path | None):
         for fn, info in ptxas_report(log).items():
             if info.get("spill_stores") or info.get("spill_loads"):
                 print(f"  {name}: {fn} spills {info}")
-    k1_args = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [
+    k1_args = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     k4_args = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
@@ -190,7 +185,7 @@ def main() -> int:
     lib0.pagerank_step_config.argtypes = (ctypes.c_int, ctypes.c_void_p)
 
     def chosen(p):
-        out = (ctypes.c_int * 3)()
+        out = (ctypes.c_int * len(KEYS))()
         lib0.pagerank_step_config(PRECISIONS.index(p), out)
         return tuple(out)
 
@@ -242,7 +237,7 @@ def main() -> int:
             raise RuntimeError(f"K4 candidate {i}: cudaError_t {err}")
         return y
 
-    def k1_launch(lib, i, ops, pdl=1):
+    def k1_launch(lib, i, ops):
         H, x, dang, t, scales = ops
         Np, Mp = H.shape
         y = torch.empty((1, Np), device=dev)
@@ -256,7 +251,7 @@ def main() -> int:
                 PRECISIONS.index(next(q for q, v in store.items()
                                       if v == H.dtype)), *a)
         else:
-            err = lib.sweep_k1(i, pdl, *a)
+            err = lib.sweep_k1(i, *a)
         if err:
             raise RuntimeError(f"K1 candidate {i}: cudaError_t {err}")
         return y, leak
@@ -355,6 +350,7 @@ def main() -> int:
             for n_seen, (i, cand) in enumerate(order):
                 again = n_seen == len(order) - 1
                 config = dict(zip(KEYS, cand))
+                desc = " ".join(f"{k}{v}" for k, v in config.items())
                 lib = libs[p]
                 # K4
                 y = k4_launch(lib, i, *k4_ops)
@@ -387,7 +383,7 @@ def main() -> int:
                 ok = all(checks.values())
                 failed += not ok
                 n_runs += 1
-                emit(row, f"  K4 {p} R{cand[0]} D{cand[1]} L{cand[2]}"
+                emit(row, f"  K4 {p} {desc}"
                      + (" (chosen)" if cand == pick else "")
                      + f": {row['flushed_us']:.2f} us flushed, "
                      + (f"{row['flushed_clean_us']:.2f} clean, "
@@ -395,47 +391,44 @@ def main() -> int:
                      + f"{row['warm_us']:.2f} warm; relative error "
                      f"{row['rel_err']:.3e}; {row['ptxas']}"
                      + ("" if ok else f"; FAILED {checks}"))
-                # K1, the reduce as a dependent launch (and, chosen, not)
-                for pdl in ((1, 0) if cand == pick else (1,)):
-                    y1, leak = k1_launch(lib, i, k1_ops, pdl)
-                    torch.cuda.synchronize()
-                    y2, leak2 = k1_launch(lib, i, k1_ops, pdl)
-                    checks = {
-                        "plain": bool(
-                            torch.allclose(y1, k1_ref[0], **TOL32)
-                            and torch.allclose(y1, k1_ref[0], **TIGHT)
-                            and torch.allclose(leak, k1_ref[1], **TIGHT)),
-                        "repeat_bits": bool(torch.equal(y1, y2)
-                                            and torch.equal(leak, leak2))}
-                    if cand == pick:
-                        wy, wl = k1.pagerank_step_fused(*k1_ops, d=DAMPING)
-                        checks["wrapper_bits"] = bool(
-                            torch.equal(wy, y1) and torch.equal(wl, leak))
-                    row = {"kernel": "K1", "storage": p, "config": config,
-                           "pdl": bool(pdl), "chosen": cand == pick,
-                           "repeat": again, "shape": list(K1_SHAPE),
-                           "rel_err": rel_err(y1, k1_ref[0]),
-                           "flushed_us": flushed(
-                               lambda: k1_launch(lib, i, k1_ops, pdl)),
-                           "warm_us": warm(
-                               lambda: k1_launch(lib, i, k1_ops, pdl)),
-                           "ptxas": regs.get(("K1", p, cand, p == "int8")),
-                           "checks": checks, **yard["K1"]}
-                    if cand == pick:
-                        row["flushed_clean_us"] = flushed_clean(
-                            lambda: k1_launch(lib, i, k1_ops, pdl))
-                    ok = all(checks.values())
-                    failed += not ok
-                    n_runs += 1
-                    emit(row, f"  K1 {p} R{cand[0]} D{cand[1]} L{cand[2]}"
-                         + (" (chosen)" if cand == pick else "")
-                         + ("" if pdl else " ordinary reduce launch")
-                         + f": {row['flushed_us']:.2f} us flushed, "
-                         + (f"{row['flushed_clean_us']:.2f} clean, "
-                            if "flushed_clean_us" in row else "")
-                         + f"{row['warm_us']:.2f} warm; relative error "
-                         f"{row['rel_err']:.3e}; {row['ptxas']}"
-                         + ("" if ok else f"; FAILED {checks}"))
+                # K1
+                y1, leak = k1_launch(lib, i, k1_ops)
+                torch.cuda.synchronize()
+                y2, leak2 = k1_launch(lib, i, k1_ops)
+                checks = {
+                    "plain": bool(torch.allclose(y1, k1_ref[0], **TOL32)
+                                  and torch.allclose(y1, k1_ref[0], **TIGHT)
+                                  and torch.allclose(leak, k1_ref[1],
+                                                     **TIGHT)),
+                    "repeat_bits": bool(torch.equal(y1, y2)
+                                        and torch.equal(leak, leak2))}
+                if cand == pick:
+                    wy, wl = k1.pagerank_step_fused(*k1_ops, d=DAMPING)
+                    checks["wrapper_bits"] = bool(
+                        torch.equal(wy, y1) and torch.equal(wl, leak))
+                row = {"kernel": "K1", "storage": p, "config": config,
+                       "chosen": cand == pick, "repeat": again,
+                       "shape": list(K1_SHAPE),
+                       "rel_err": rel_err(y1, k1_ref[0]),
+                       "flushed_us": flushed(
+                           lambda: k1_launch(lib, i, k1_ops)),
+                       "warm_us": warm(lambda: k1_launch(lib, i, k1_ops)),
+                       "ptxas": regs.get(("K1", p, cand, p == "int8")),
+                       "checks": checks, **yard["K1"]}
+                if cand == pick:
+                    row["flushed_clean_us"] = flushed_clean(
+                        lambda: k1_launch(lib, i, k1_ops))
+                ok = all(checks.values())
+                failed += not ok
+                n_runs += 1
+                emit(row, f"  K1 {p} {desc}"
+                     + (" (chosen)" if cand == pick else "")
+                     + f": {row['flushed_us']:.2f} us flushed, "
+                     + (f"{row['flushed_clean_us']:.2f} clean, "
+                        if "flushed_clean_us" in row else "")
+                     + f"{row['warm_us']:.2f} warm; relative error "
+                     f"{row['rel_err']:.3e}; {row['ptxas']}"
+                     + ("" if ok else f"; FAILED {checks}"))
             time_parent()
             summary = {"kernel": "yardsticks", "storage": p, **{
                 f"{k}_{n}": v for k, d_ in yard.items()

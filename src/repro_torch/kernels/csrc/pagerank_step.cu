@@ -36,14 +36,13 @@
 //     of R loads each stays in flight in registers: a lane consumes one
 //     step and at once issues the load D steps ahead, so 16 * R * D bytes a
 //     lane are always in flight, whatever the storage type.  H is loaded
-//     with L1::no_allocate (it is read once) and a 256-byte L2 fetch, which
-//     the Cfg's L selects.
+//     with L1::no_allocate (it is read once) and a 256-byte L2 fetch.
 //   * x is read through L1 (it stays there: H does not allocate in L1), one
 //     load of V floats per step that feeds all R rows, so the x bytes a lane
 //     reads are at most the H bytes (bf16 / f16 at R = 2, int8 at R = 4)
 //     and half of them at float32 (R = 2).
-//   * int8 is upcast without the conversion unit (vec4.cuh's byte permute);
-//     every product is accumulated in float32.
+//   * H is upcast by vec4.cuh's Vec4 (int8 without the conversion unit, by
+//     a byte permute); every product is accumulated in float32.
 //   * K4 takes any shape: when the row pitch is a multiple of 16 bytes and
 //     H and x are 16-byte aligned (every main-path call), the rows of a warp
 //     share the ring and x's vector loads; otherwise each row peels its own
@@ -73,14 +72,11 @@ namespace {
 constexpr int kRowsPerCta = 8;
 constexpr int kReduceThreads = 256;
 
-// A configuration of the core: R rows per warp, a ring D steps deep, and
-// the load of H (L = 1: L1::no_allocate with a 256-byte L2 fetch; L = 0:
-// the read-only path, __ldg).
-template <int R_, int D_, int L_>
+// A configuration of the core: R rows per warp and a ring D steps deep.
+template <int R_, int D_>
 struct Cfg {
   static constexpr int R = R_;
   static constexpr int D = D_;
-  static constexpr int L = L_;
   static constexpr int W = kRowsPerCta / R_;  // warps per CTA
   static_assert(kRowsPerCta % R_ == 0, "R must divide kRowsPerCta");
 };
@@ -88,93 +84,32 @@ struct Cfg {
 // The configuration each storage type takes, K1 and K4 alike
 // (scripts/step_tile_sweep.py times the candidates).
 template <typename T>
-struct Chosen;
-template <>
-struct Chosen<float> {
-  using C = Cfg<2, 4, 1>;
-};
-template <>
-struct Chosen<__nv_bfloat16> {
-  using C = Cfg<2, 4, 1>;
-};
-template <>
-struct Chosen<__half> {
-  using C = Cfg<2, 4, 1>;
+struct Chosen {
+  using C = Cfg<2, 4>;
 };
 template <>
 struct Chosen<int8_t> {
-  using C = Cfg<4, 2, 1>;
+  using C = Cfg<4, 2>;
 };
 
-template <int L>
+// 16 bytes of H, read once: no L1 allocation, a 256-byte L2 fetch.
 __device__ __forceinline__ uint4 load16(const void* p) {
-  if (L) {
-    uint4 v;
-    asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, "
-        "[%4];"
-        : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-        : "l"(p));
-    return v;
-  }
-  return __ldg(reinterpret_cast<const uint4*>(p));
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
 }
 
-// 16 bytes of H: V elements, upcast to float32.
+// 16 bytes of H: V elements, upcast to float32 by vec4.cuh's Vec4<T>.
 template <typename T>
-struct Lanes;
-
-template <>
-struct Lanes<float> {
-  static constexpr int V = 4;
+struct Lanes {
+  static constexpr int V = 16 / static_cast<int>(sizeof(T));
   __device__ __forceinline__ static void up(uint4 q, float (&v)[V]) {
-    v[0] = __uint_as_float(q.x);
-    v[1] = __uint_as_float(q.y);
-    v[2] = __uint_as_float(q.z);
-    v[3] = __uint_as_float(q.w);
-  }
-};
-
-__device__ __forceinline__ float2 up2(__nv_bfloat162 h) {
-  return __bfloat1622float2(h);
-}
-__device__ __forceinline__ float2 up2(__half2 h) { return __half22float2(h); }
-
-// 8 two-byte elements, one pair of them per 32-bit word.
-template <typename H2>
-__device__ __forceinline__ void up_pairs(uint4 q, float (&v)[8]) {
-  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+    const auto* raw = reinterpret_cast<const typename Vec4<T>::Raw*>(&q);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = up2(*reinterpret_cast<const H2*>(&w[i]));
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-template <>
-struct Lanes<__nv_bfloat16> {
-  static constexpr int V = 8;
-  __device__ __forceinline__ static void up(uint4 q, float (&v)[V]) {
-    up_pairs<__nv_bfloat162>(q, v);
-  }
-};
-
-template <>
-struct Lanes<__half> {
-  static constexpr int V = 8;
-  __device__ __forceinline__ static void up(uint4 q, float (&v)[V]) {
-    up_pairs<__half2>(q, v);
-  }
-};
-
-template <>
-struct Lanes<int8_t> {
-  static constexpr int V = 16;
-  __device__ __forceinline__ static void up(uint4 q, float (&v)[V]) {
-    const unsigned w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 f = Vec4<int8_t>::up(w[i]);
+    for (int i = 0; i < V / 4; ++i) {
+      const float4 f = Vec4<T>::up(raw[i]);
       v[4 * i] = f.x;
       v[4 * i + 1] = f.y;
       v[4 * i + 2] = f.z;
@@ -190,7 +125,7 @@ struct Lanes<int8_t> {
 // when kXVec (one load of V floats feeds the R rows), any alignment
 // otherwise (V scalar loads).  A lane's columns are lane * V + k * 32 * V,
 // summed in increasing k: the order is fixed.
-template <typename T, int R, int D, int L, bool kXVec>
+template <typename T, int R, int D, bool kXVec>
 __device__ __forceinline__ void stream_rows(const T* __restrict__ h,
                                             size_t pitch, int rows,
                                             const float* __restrict__ x,
@@ -209,7 +144,7 @@ __device__ __forceinline__ void stream_rows(const T* __restrict__ h,
     const int c = j * kStep + lane * V;
     if (c < M) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) buf[j][r] = load16<L>(row[r] + c);
+      for (int r = 0; r < R; ++r) buf[j][r] = load16(row[r] + c);
     }
   }
   for (int k = 0; k < steps; k += D) {
@@ -241,7 +176,7 @@ __device__ __forceinline__ void stream_rows(const T* __restrict__ h,
         const int n = c + D * kStep;
         if (n < M) {
 #pragma unroll
-          for (int r = 0; r < R; ++r) buf[j][r] = load16<L>(row[r] + n);
+          for (int r = 0; r < R; ++r) buf[j][r] = load16(row[r] + n);
         }
       }
     }
@@ -252,7 +187,7 @@ __device__ __forceinline__ void stream_rows(const T* __restrict__ h,
 // boundary, the 16-byte body on the core (R = 1; x in vectors where the
 // body's first x is 16-byte aligned, else a float at a time), and a tail of
 // scalar loads; this lane's share, in the order head, body, tail.
-template <typename T, int D, int L>
+template <typename T, int D>
 __device__ __forceinline__ float peeled_row(const T* __restrict__ h,
                                             const float* __restrict__ x,
                                             int M, int lane) {
@@ -265,9 +200,9 @@ __device__ __forceinline__ float peeled_row(const T* __restrict__ h,
   if (lane < head)
     acc[0] = fmaf(Scalar<T>::load(h + lane), __ldg(x + lane), 0.f);
   if ((reinterpret_cast<uintptr_t>(x + head) & 15) == 0)
-    stream_rows<T, 1, D, L, true>(h + head, 0, 1, x + head, body, lane, acc);
+    stream_rows<T, 1, D, true>(h + head, 0, 1, x + head, body, lane, acc);
   else
-    stream_rows<T, 1, D, L, false>(h + head, 0, 1, x + head, body, lane, acc);
+    stream_rows<T, 1, D, false>(h + head, 0, 1, x + head, body, lane, acc);
   const int tail = head + body;
   if (lane < M - tail)
     acc[0] = fmaf(Scalar<T>::load(h + tail + lane), __ldg(x + tail + lane),
@@ -310,8 +245,8 @@ fused_step_kernel(const T* __restrict__ H, const float* __restrict__ x,
   float acc[C::R];
 #pragma unroll
   for (int r = 0; r < C::R; ++r) acc[r] = 0.f;
-  stream_rows<T, C::R, C::D, C::L, true>(
-      H + static_cast<size_t>(row0) * Mp, Mp, C::R, x, Mp, lane, acc);
+  stream_rows<T, C::R, C::D, true>(H + static_cast<size_t>(row0) * Mp, Mp,
+                                   C::R, x, Mp, lane, acc);
   warp_sum(acc);
 
   const float t = __ldg(t_ptr);
@@ -379,12 +314,12 @@ step_kernel(const T* __restrict__ H, const float* __restrict__ x,
 #pragma unroll
   for (int r = 0; r < C::R; ++r) acc[r] = 0.f;
   if (kShared) {
-    stream_rows<T, C::R, C::D, C::L, true>(h, M, rows, x, M, lane, acc);
+    stream_rows<T, C::R, C::D, true>(h, M, rows, x, M, lane, acc);
   } else {
 #pragma unroll
     for (int r = 0; r < C::R; ++r) {
       if (r < rows)
-        acc[r] = peeled_row<T, C::D * C::R, C::L>(
+        acc[r] = peeled_row<T, C::D * C::R>(
             h + static_cast<size_t>(r) * M, x, M, lane);
     }
   }
@@ -393,14 +328,12 @@ step_kernel(const T* __restrict__ H, const float* __restrict__ x,
     y[row0 + lane] = __fadd_rn(__fmul_rn(d, pick(acc, lane)), __ldg(t_ptr));
 }
 
-// K1 and its leak reduce.  ``pdl``: the reduce as a programmatic
-// dependent launch (else an ordinary one, as scripts/step_tile_sweep.py
-// compares).
+// K1, then its leak reduce as a programmatic dependent launch.
 template <typename T, class C>
 cudaError_t launch_fused(const void* H, const float* x, const float* dang,
                          const float* t, const float* scales, float* y,
                          float* partials, float* leak, int Np, int Mp,
-                         float d, bool pdl, cudaStream_t stream) {
+                         float d, cudaStream_t stream) {
   const dim3 grid(Np / kRowsPerCta);
   const T* h = static_cast<const T*>(H);
   if (scales != nullptr) {
@@ -412,11 +345,6 @@ cudaError_t launch_fused(const void* H, const float* x, const float* dang,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int n = Np / kRowsPerCta;
-  if (!pdl) {
-    leak_reduce_kernel<<<1, kReduceThreads, 0, stream>>>(partials, n, leak);
-    return cudaGetLastError();
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(1);
   cfg.blockDim = dim3(kReduceThreads);
@@ -428,7 +356,8 @@ cudaError_t launch_fused(const void* H, const float* x, const float* dang,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, leak_reduce_kernel,
-                            static_cast<const float*>(partials), n, leak);
+                            static_cast<const float*>(partials),
+                            Np / kRowsPerCta, leak);
 }
 
 template <typename T, class C>
@@ -476,13 +405,12 @@ extern "C" {
 int pagerank_step_fused_rows_per_block() { return kRowsPerCta; }
 
 // The configuration storage type ``dtype`` takes (K1 and K4 alike):
-// out[0..2] = R, D, L.  Returns 0, or cudaErrorInvalidValue.
+// out[0..1] = R, D.  Returns 0, or cudaErrorInvalidValue.
 int pagerank_step_config(int dtype, int* out) {
   return static_cast<int>(by_type(dtype, [&](auto* tag) {
     using C = typename Chosen<std::remove_pointer_t<decltype(tag)>>::C;
     out[0] = C::R;
     out[1] = C::D;
-    out[2] = C::L;
     return cudaSuccess;
   }));
 }
@@ -503,7 +431,7 @@ int pagerank_step_fused_launch(int dtype, const void* H, const void* x,
         H, static_cast<const float*>(x), static_cast<const float*>(dang),
         static_cast<const float*>(t), static_cast<const float*>(scales),
         static_cast<float*>(y), static_cast<float*>(partials),
-        static_cast<float*>(leak), Np, Mp, d, true,
+        static_cast<float*>(leak), Np, Mp, d,
         static_cast<cudaStream_t>(stream));
   }));
 }

@@ -45,13 +45,13 @@ def _log(entries):
 
 
 def _step_log(storage):
-    """A log of K1 (with row scales) and K4 (peeled path) at
-    Cfg<4, 4, 1>, and of the leak reduce, which is neither."""
+    """A log of K1 (with row scales) and K4 (peeled path) at Cfg<4, 2>,
+    and of the leak reduce, which is neither."""
     ns = "_ZN49_GLOBAL__N__2b3a51c7_16_pagerank_step_cu_9e1f0a41"
-    k1 = (f"{ns}17fused_step_kernelI{MANGLED[storage]}NS_3CfgILi4ELi4ELi1EE"
-          "ELb1EEEvPKT_PKfS7_S7_S7_PfS8_if")
-    k4 = (f"{ns}11step_kernelI{MANGLED[storage]}NS_3CfgILi4ELi4ELi1EEELb0EE"
-          "EvPKT_PKfS7_Pfiif")
+    k1 = (f"{ns}17fused_step_kernelI{MANGLED[storage]}NS_3CfgILi4ELi2EEELb1"
+          "EEEvPKT_PKfS7_S7_S7_PfS8_if")
+    k4 = (f"{ns}11step_kernelI{MANGLED[storage]}NS_3CfgILi4ELi2EEELb0EEEvPKT_"
+          "PKfS7_Pfiif")
     reduce_ = f"{ns}18leak_reduce_kernelEPKfiPf"
     return "\n".join(_ptxas(k1, 96, 0, 0) + _ptxas(k4, 40, 8, 4)
                      + _ptxas(reduce_, 12, 0, 0))
@@ -74,9 +74,9 @@ def test_k2_instantiations_from_the_ptxas_log(storage):
 def test_step_instantiations_from_the_ptxas_log(storage):
     got = chip_smoke.step_instantiations(_step_log(storage))
     assert got == {
-        ("K1", storage, (4, 4, 1), True): {
+        ("K1", storage, (4, 2), True): {
             "registers": 96, "spill_stores": 0, "spill_loads": 0},
-        ("K4", storage, (4, 4, 1), False): {
+        ("K4", storage, (4, 2), False): {
             "registers": 40, "spill_stores": 8, "spill_loads": 4}}
     # the K2 and K3 readers take none of them
     assert chip_smoke.k2_instantiations(_step_log(storage)) == {}
