@@ -4,7 +4,11 @@ their plain versions, the wrappers' checks on CUDA tensors, the engine's
 fused and ``bsr`` tiers (``run``, ``run_tol`` and batched PPR) with their
 launch counts, ``ops.pagerank_iteration``, and one dynamic update per
 patchable tier.  K2 and K3 run at every batch width of their kernels,
-and a NaN in one query's x is held to that query.  Every test here needs
+and a NaN in one query's x is held to that query.  K1 and K4 run at the
+edges of their row-streaming core (one CTA's rows, fewer rows than SMs,
+rows that are not 16-byte aligned, H at an element offset), a NaN in x
+reaches every row, and 100 K1 steps replayed from a CUDA graph give the
+eager bits.  Every test here needs
 a CUDA card and ``nvcc``; without a card each one skips with the reason
 (they carry the ``cuda`` marker).
 On the card:
