@@ -55,6 +55,17 @@ result line):
    the final graph, and the K1 / K2 / K3 launches of every tick are
    checked exactly against its strategy and sweeps (K2's kept by batch
    size);
+3f. the resilient serve path: ``examples/faulty_stream_pagerank.py``'s
+   stream and 8 faulted steps, then an Inf and a 1e4 layout, a poisoned
+   layout served with no delta pending (the serve path's recovery), a
+   rebuild that raises once (the snapshot restored, answers stale) and a
+   clean step, through ``PageRankQueryEngine(resilience=...)`` on
+   ``fused_dense`` f32 and bf16 (K1, K2) and ``bsr`` f32 (K3); every
+   outcome, watchdog verdict, query status, dead letter and the injector
+   log held to the same script through the plain versions on the CPU, the
+   final f32 ranks to the CPU run's and to a from-scratch solve; then the
+   watchdog's cost per iteration, ``restore`` against a cold solve and
+   the clean-tick flush of the resilient mode against the legacy one;
 4. times on the card (CUDA events, medians) beside each kernel's bound:
    the kernel, its plain version and the library call each with the L2
    cache flushed before the call, and the kernel back to back as well
@@ -85,6 +96,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -142,6 +154,21 @@ K4_REPLACES = "src/repro/kernels/pagerank_step.py:35"
 # the live phase: examples/streaming_pagerank.py's stream and tick count
 STREAM = dict(m_edges=4, seed=0, insert_per_step=6, delete_per_step=4)
 TICKS, QUERIES_PER_TICK = 16, 4
+# phase 3f: examples/faulty_stream_pagerank.py's stream and its 8 faulted
+# steps, then an Inf and a 1e4 layout, a poisoned layout served with no
+# delta pending (the serve path's own recovery), a rebuild that raises once
+# (the snapshot restored, answers stale) and a clean step (fresh again)
+FAULTY_STREAM = dict(m_edges=4, seed=0, insert_per_step=4, delete_per_step=0)
+FAULTY_SCRIPT = (("delta", "out_of_range"), ("delta", "negative"),
+                 ("layout", "nan"), ("delta", "self_loop"),
+                 ("update", None), ("delta", "nan"), ("layout", "scale"),
+                 ("delta", "dup_flood"), ("layout", "inf"),
+                 ("layout", "huge"), ("serve", "nan"), ("rebuild", "nan"),
+                 ("clean", None))
+# the tiers of phase 3f: K1 and K2 (f32, and bf16, whose float operand for
+# the injector is the dangling mask), and K3
+RESILIENT_TIERS = (("fused_dense", "f32"), ("fused_dense", "bf16"),
+                   ("bsr", "f32"))
 # K4's storage types on its path (ops.pagerank_iteration takes no int8
 # row scales, as in the JAX package)
 K4_PRECISIONS = ("f32", "bf16", "f16")
@@ -431,6 +458,128 @@ def topk_overlap(np, a, b, k):
     return len(np.intersect1d(ta, tb)) / k
 
 
+def faulty_stream(np, torch, device, backend, precision, n, kernels=None):
+    """FAULTY_SCRIPT through the port's resilient serve engine on
+    ``device``: ``PageRankQueryEngine(n_iters=60, max_batch=4,
+    resilience=ServeResilience(healthy_atol=SUM_TOL[precision]))`` over a
+    ``DynamicPageRankEngine`` on ``EdgeStream(n, **FAULTY_STREAM)``, 2
+    queries of 3 seeds per step.
+    Returns each step's record (its refresh outcome and watchdog verdict
+    when it refreshed, the serve path's recoveries, each query's status
+    and version, and, with ``kernels`` = {name: module}, the launches of
+    the flush by kernel), the served scores, the dead letters, the
+    injector log, the final ranks and the accepted edges."""
+    from repro_torch.graph.delta import EdgeStream, apply_delta
+    from repro_torch.obs.registry import NullRegistry
+    from repro_torch.pagerank import DynamicPageRankEngine, FaultInjector
+    from repro_torch.serve import PageRankQueryEngine, ServeResilience
+
+    stream = EdgeStream(n, **FAULTY_STREAM)
+    cur = stream.base()
+    eng = DynamicPageRankEngine(cur[0], cur[1], n, d=DAMPING,
+                                backend=backend, precision=precision,
+                                device=device, metrics=NullRegistry())
+    eng.run_tol(1e-7)
+    # a reduced-precision H does not keep the mass at 1: the health checks
+    # take the tier's SUM_TOL (1e-3, the default, for f32)
+    qe = PageRankQueryEngine(eng, n_iters=60, max_batch=4,
+                             resilience=ServeResilience(
+                                 healthy_atol=SUM_TOL[precision]))
+    inj = FaultInjector(seed=SEED)
+    rng = np.random.default_rng(SEED)
+    recovers = []
+    recover = qe.refresher.recover
+
+    def counted_recover(*a, **kw):
+        recovers.append(1)
+        return recover(*a, **kw)
+    qe.refresher.recover = counted_recover
+    steps, scores = [], []
+    for step, (klass, kind) in enumerate(FAULTY_SCRIPT):
+        if klass != "serve":
+            good = stream.step()
+            qe.push_update(good)
+            cur = apply_delta(cur[0], cur[1], good, n)
+        if klass == "delta":
+            res = qe.push_update(inj.corrupt_delta(n, kind=kind))
+            if res.delta is not None:
+                cur = apply_delta(cur[0], cur[1], res.delta, n)
+        elif klass in ("layout", "serve", "rebuild"):
+            inj.corrupt_layout(eng, kind=kind)
+        elif klass == "update":
+            inj.fail_next_updates(eng, times=1)
+        if klass == "rebuild":
+            def failing_once(*a, **kw):
+                del eng.rebuild_and_solve
+                raise RuntimeError("injected rebuild failure")
+            eng.rebuild_and_solve = failing_once
+        queries = [qe.submit(uid=step * 10 + q,
+                             seeds=rng.choice(n, size=3, replace=False),
+                             top_k=10) for q in range(2)]
+        for k in (kernels or {}).values():
+            k.reset_launches()
+        before, n_rec = qe.last_refresh_outcome, len(recovers)
+        qe.flush()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        o = qe.last_refresh_outcome
+        info = o.update_info if o is not before else None
+        steps.append({
+            "fault": f"{klass}:{kind}",
+            "refresh": (None if o is before
+                        else (o.status, o.attempts, o.delta_applied)),
+            "verdict": (None if info is None else
+                        "nonfinite" if info.nonfinite else
+                        "diverged" if info.diverged else "healthy"),
+            "recovers": len(recovers) - n_rec,
+            "queries": [(q.status, q.graph_version) for q in queries],
+            "launches": {name: sum(k.launches.values())
+                         for name, k in (kernels or {}).items()}})
+        scores.append([np.asarray(q.result[1]) for q in queries])
+    return {"steps": steps, "scores": scores,
+            "dead_letters": qe.dead_letters.counts(), "log": list(inj.log),
+            "ranks": eng.ranks.double().cpu().numpy(), "edges": cur}
+
+
+def check_faulty_stream(np, card, cpu, what):
+    """Phase 3f's checks of one tier's card run against the same script
+    through the plain versions on the CPU: the same steps (outcomes,
+    verdicts, recoveries, query statuses and versions), dead letters and
+    injector log; every served answer finite; the script's faults ending
+    as the ladder says; every clean step ok and fresh."""
+    for k, (g, c) in enumerate(zip(card["steps"], cpu["steps"])):
+        check({key: v for key, v in g.items() if key != "launches"}
+              == {key: v for key, v in c.items() if key != "launches"},
+              f"{what} step {k} ({g['fault']}): card {g} != cpu {c}")
+    check(card["dead_letters"] == cpu["dead_letters"],
+          f"{what}: dead letters {card['dead_letters']} != "
+          f"{cpu['dead_letters']}")
+    check(card["log"] == cpu["log"],
+          f"{what}: injector log {card['log']} != {cpu['log']}")
+    for k, sc in enumerate(card["scores"]):
+        check(all(np.isfinite(s).all() for s in sc),
+              f"{what} step {k}: a served answer is not finite")
+    st = {s["fault"]: s for s in card["steps"]}
+    for s in card["steps"]:
+        klass = s["fault"].split(":")[0]
+        if klass in ("delta", "clean"):
+            check(s["refresh"] == ("ok", 1, True) and s["recovers"] == 0
+                  and {q[0] for q in s["queries"]} == {"fresh"},
+                  f"{what}: clean step {s}")
+    check(st["layout:inf"]["verdict"] == "nonfinite"
+          and st["layout:inf"]["refresh"][0] == "recovered",
+          f"{what}: layout:inf {st['layout:inf']}")
+    check(st["serve:nan"]["refresh"] is None
+          and st["serve:nan"]["recovers"] == 1
+          and {q[0] for q in st["serve:nan"]["queries"]} == {"fresh"},
+          f"{what}: the serve path's recovery {st['serve:nan']}")
+    check(st["rebuild:nan"]["refresh"] == ("restored", 1, False)
+          and {q[0] for q in st["rebuild:nan"]["queries"]} == {"stale"},
+          f"{what}: the restore {st['rebuild:nan']}")
+    check(st["update:None"]["refresh"] == ("ok", 2, True),
+          f"{what}: the raising update {st['update:None']}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from the "
@@ -475,7 +624,8 @@ def main() -> int:
     from repro_torch.pagerank.dense import pagerank_dense_fixed
     from repro_torch.pagerank.fidelity import topk_overlap as overlap
     from repro_torch.pagerank.sparse import top_k_proteins
-    from repro_torch.serve import PageRankQueryEngine, ResultCache
+    from repro_torch.serve import (PageRankQueryEngine, ResultCache,
+                                   ServeResilience)
 
     cfg = full()
     check((cfg.n_nodes, cfg.n_iters, cfg.damping, cfg.seed)
@@ -1192,6 +1342,163 @@ def main() -> int:
               f"{worst:.3e}; {cache.hits} hits, {cache.invalidations} "
               f"invalidated; launches {live[backend]['launches']}")
 
+    # --------------------------------------------------------------- 3f --
+    script = [f"{k}:{v}" for k, v in FAULTY_SCRIPT]
+    print(f"resilient serve: EdgeStream({N_NODES}, {FAULTY_STREAM}), "
+          f"{len(script)} steps {script}, PageRankQueryEngine(n_iters=60, "
+          "max_batch=4, resilience=ServeResilience(healthy_atol=SUM_TOL)), "
+          "2 queries of 3 seeds a step; launch counts "
+          "zeroed before and read after each flush; each tier held to the "
+          "same script on the CPU (the plain versions)")
+    t_res = time.perf_counter()
+    resilient = {}
+    res_launches = Counter()
+    cpu = torch.device("cpu")
+    for backend, p in RESILIENT_TIERS:
+        what = f"{backend}[{p}]"
+        t0 = time.perf_counter()
+        on_card = faulty_stream(np, torch, dev, backend, p, N_NODES,
+                                {"K1": k1, "K2": k2, "K3": k3})
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = faulty_stream(np, torch, cpu, backend, p, N_NODES)
+        cpu_s = time.perf_counter() - t0
+        check_faulty_stream(np, on_card, on_cpu, what)
+        per_step = [s["launches"] for s in on_card["steps"]]
+        launches = {k: sum(s[k] for s in per_step) for k in ("K1", "K2",
+                                                            "K3")}
+        res_launches.update(launches)
+        want = {"K3"} if backend == "bsr" else {"K1", "K2"}
+        check({k for k, v in launches.items() if v} == want,
+              f"{what}: launches {launches}, want {sorted(want)} only")
+        l1_cpu = float(np.abs(on_card["ranks"] - on_cpu["ranks"]).sum())
+        check(l1_cpu <= 1e-5, f"{what}: L1(card, cpu) {l1_cpu:.3e}")
+        l1_scratch = None
+        if p == "f32":
+            e = float(np.abs(on_card["ranks"] - on_cpu["ranks"]).max())
+            check(bool(np.allclose(on_card["ranks"], on_cpu["ranks"],
+                                   **TOL_TIER)),
+                  f"{what}: final ranks vs the cpu run max|diff| {e:.3e} "
+                  f"outside {TOL_TIER}")
+            scratch = PageRankEngine(*on_card["edges"], N_NODES, d=DAMPING,
+                                     backend="dense", device=dev,
+                                     metrics=NullRegistry()).run(300)
+            l1_scratch = float(np.abs(on_card["ranks"] - scratch.double()
+                                      .cpu().numpy()).sum())
+            check(l1_scratch <= 1e-5, f"{what}: L1(live, from scratch) "
+                  f"{l1_scratch:.3e} > 1e-5")
+        resilient[what] = {
+            "steps": on_card["steps"],
+            "dead_letters": on_card["dead_letters"],
+            "log": on_card["log"], "l1_vs_cpu": l1_cpu,
+            "l1_vs_scratch": l1_scratch, "launches": launches,
+            "card_s": card_s, "cpu_s": cpu_s}
+        steps = on_card["steps"]
+        print(f"  {what}: refreshes "
+              f"{[s['refresh'] and s['refresh'][0] for s in steps]}; "
+              f"queries {[s['queries'][0][0] for s in steps]}; serve "
+              f"recoveries {sum(s['recovers'] for s in steps)}; the cpu "
+              "run's equal; dead letters "
+              f"{on_card['dead_letters']}; L1 vs cpu {l1_cpu:.3e}"
+              + ("" if l1_scratch is None
+                 else f", vs scratch {l1_scratch:.3e}")
+              + f"; {card_s:.2f} s on the card, {cpu_s:.2f} s on the cpu")
+        print(f"  {what} launches per step: "
+              + "; ".join(f"{s['fault']} "
+                          + " ".join(f"{k}={v}" for k, v in
+                                     s["launches"].items() if v)
+                          for s in on_card["steps"]))
+    check(all(res_launches[k] > 0 for k in ("K1", "K2", "K3")),
+          f"resilient serve launches {dict(res_launches)}")
+    print("  injector log (every tier): "
+          f"{resilient['fused_dense[f32]']['log']}")
+
+    # the watchdog's cost, run_tol(tol=0) for 100 iterations with and
+    # without it (interleaved, median of 5 each), on K1 and on K3
+    watchdog = {}
+    for name, eng in (("fused_dense", fused), ("bsr", bsr_engines["f32"])):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            times = {True: [], False: []}
+            for _ in range(5):
+                for on in (True, False):
+                    times[on].append(wall_ms(torch, lambda: eng.run_tol(
+                        tol=0.0, max_iters=100, watchdog=on), rounds=1))
+        on_ms = statistics.median(times[True])
+        off_ms = statistics.median(times[False])
+        watchdog[name] = {"on_ms": on_ms, "off_ms": off_ms,
+                          "per_iter_us": (on_ms - off_ms) * 10.0}
+        print(f"  watchdog on {name} f32: run_tol(tol=0, 100 iterations) "
+              f"{on_ms:.3f} ms with it, {off_ms:.3f} ms without: "
+              f"{watchdog[name]['per_iter_us']:.2f} us per iteration on "
+              f"{card}")
+    # restore(snapshot) against a fresh engine and a cold run_tol(1e-6)
+    restore = {}
+    for backend in ("fused_dense", "bsr"):
+        dyn = DynamicPageRankEngine(src, dst, N_NODES, d=DAMPING,
+                                    backend=backend, device=dev,
+                                    metrics=NullRegistry())
+        dyn.run_tol(1e-6)
+        snap = dyn.snapshot()
+        r_ms = wall_ms(torch, lambda: dyn.restore(snap), rounds=3)
+        c_ms = wall_ms(torch, lambda: DynamicPageRankEngine(
+            src, dst, N_NODES, d=DAMPING, backend=backend, device=dev,
+            metrics=NullRegistry()).run_tol(1e-6), rounds=3)
+        check(bool(torch.equal(dyn.ranks.cpu(), torch.from_numpy(
+            snap.ranks))), f"{backend}: restore changed the ranks")
+        restore[backend] = {"restore_ms": r_ms, "cold_ms": c_ms}
+        print(f"  restore(snapshot) on {backend} f32: {r_ms:.2f} ms; a "
+              f"fresh engine and a cold run_tol(1e-6) {c_ms:.2f} ms "
+              f"(median of 3) on {card}")
+    # clean ticks: the resilient mode against the legacy one, two engines
+    # fed the same 16 deltas and queries, their flushes taken in turns
+    # (the legacy one first on even ticks)
+    flushes = {}
+    for backend in ("fused_dense", "bsr"):
+        stream = EdgeStream(N_NODES, **FAULTY_STREAM)
+        cur = stream.base()
+        serving = {}
+        for mode in ("legacy", "resilient"):
+            reg = MetricsRegistry()
+            dyn = DynamicPageRankEngine(cur[0], cur[1], N_NODES, d=DAMPING,
+                                        backend=backend, device=dev,
+                                        metrics=reg)
+            dyn.run_tol(1e-7)
+            serving[mode] = (reg, PageRankQueryEngine(
+                dyn, n_iters=60, max_batch=4, metrics=reg,
+                resilience=ServeResilience() if mode == "resilient"
+                else None))
+        rng = np.random.default_rng(SEED)
+        for tick, delta in zip(range(TICKS), stream):
+            seeds = [rng.choice(N_NODES, size=3, replace=False)
+                     for _ in range(2)]
+            order = ("legacy", "resilient")[::1 if tick % 2 == 0 else -1]
+            for mode in order:
+                qe = serving[mode][1]
+                qe.push_update(delta)
+                qs = [qe.submit(tick * 10 + q, s) for q, s in
+                      enumerate(seeds)]
+                qe.flush()
+                check(all(q.status == ("fresh" if mode == "resilient"
+                                       else "unserved") for q in qs)
+                      and qe.last_update_info.healthy,
+                      f"{backend} {mode} tick {tick}: {qs[0].status}")
+        for mode, (reg, _) in serving.items():
+            h = reg.histogram("serve.batch_ms")
+            flushes[f"{backend}.{mode}"] = {"p50_ms": h.quantile(0.5),
+                                            "p95_ms": h.quantile(0.95)}
+        print(f"  {TICKS} clean ticks on {backend} f32, flush p50 / p95 "
+              "(the two modes in turns): legacy "
+              f"{flushes[backend + '.legacy']['p50_ms']:.3f} / "
+              f"{flushes[backend + '.legacy']['p95_ms']:.3f} ms, resilient "
+              f"{flushes[backend + '.resilient']['p50_ms']:.3f} / "
+              f"{flushes[backend + '.resilient']['p95_ms']:.3f} ms on {card}")
+    resilient_stats = {"tiers": resilient, "watchdog": watchdog,
+                       "restore": restore, "flush": flushes,
+                       "launches": dict(res_launches),
+                       "phase_s": time.perf_counter() - t_res}
+    print(f"  resilient phase took {resilient_stats['phase_s']:.2f} s")
+
     # ---------------------------------------------------------------- 4 --
     print(f"times on {card} (CUDA events, medians of CUDA-graph replays; "
           "'flushed': one call after a 256 MiB write evicts the L2, "
@@ -1542,6 +1849,7 @@ def main() -> int:
                       "ops_loop": {"max_abs_diff": e_ops,
                                    "k4_launches": k4_launches},
                       "live": live, "k3_serve_paths": e2e,
+                      "resilient": resilient_stats,
                       "k2_launches_by_step": {
                           step: {f"{p},B={b}": n for (p, b), n in c.items()}
                           for step, c in k2_steps.items()},

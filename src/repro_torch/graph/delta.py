@@ -67,9 +67,9 @@ class GraphDelta:
         here with a clear error.  Checks: matching src/dst lengths,
         integral finite ids, no negative ids, no self-loops.  Range
         against ``n`` stays in :meth:`canonical` (a delta does not know
-        its graph size).  Arrays are normalized to 1-D int32.  (The JAX
-        package's ``validate_delta`` screen of untrusted streams is not
-        ported yet.)"""
+        its graph size).  Arrays are normalized to 1-D int32.  Untrusted
+        streams should screen with :func:`repro_torch.graph.validate.
+        validate_delta` instead of catching this."""
         for side in ("insert", "delete"):
             src = np.atleast_1d(np.asarray(getattr(self, f"{side}_src")))
             dst = np.atleast_1d(np.asarray(getattr(self, f"{side}_dst")))

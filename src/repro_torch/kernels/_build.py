@@ -8,6 +8,11 @@ the flags, so an edited kernel is rebuilt and a stale library is never
 loaded.  Nothing is built when a module is imported: :func:`load` builds on
 the first call that needs a kernel, and :func:`build_all` builds every
 source at once, one ``nvcc`` process per source, all started together.
+
+A build that cannot run or fails raises :class:`KernelBuildError`, and a
+wrapper whose launch returns a CUDA error raises :class:`KernelLaunchError`:
+faults of the card's toolchain and runtime, which the resilient serving
+path lets through instead of turning them into statuses.
 """
 from __future__ import annotations
 
@@ -19,13 +24,24 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_ROOT", "NVCC_FLAGS", "sources", "load",
-           "build_all", "compile_units"]
+__all__ = ["CSRC", "BUILD_ROOT", "NVCC_FLAGS", "KernelBuildError",
+           "KernelLaunchError", "sources", "load", "build_all",
+           "compile_units"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+
+class KernelBuildError(RuntimeError):
+    """A kernel source could not be built: no ``nvcc``, or it failed."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel's launch returned a CUDA error."""
+
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _logs: dict[str, str] = {}
@@ -43,7 +59,7 @@ def _nvcc() -> str:
         return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels build only "
+        raise KernelBuildError("nvcc not found: the CUDA kernels build only "
                            "where the CUDA toolkit is installed")
     return found
 
@@ -77,7 +93,7 @@ def _finish(name: str, job) -> None:
     _logs[name] = log
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu "
+        raise KernelBuildError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     _log_path(out).write_text(log)
     os.replace(tmp, out)
@@ -119,7 +135,7 @@ def compile_units(units: dict[str, tuple[Path, Path]]) -> dict[str, str]:
     logs = {name: proc.communicate()[0] for name, proc in jobs.items()}
     for name, proc in jobs.items():
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name} (exit "
+            raise KernelBuildError(f"nvcc failed for {name} (exit "
                                f"{proc.returncode}):\n{logs[name]}")
     return logs
 

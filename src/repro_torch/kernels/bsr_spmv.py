@@ -27,6 +27,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels._build import KernelLaunchError
 from repro_torch.kernels.ref import bsr_spmv_ref
 
 __all__ = ["bsr_spmv", "launches", "reset_launches"]
@@ -110,6 +111,7 @@ def bsr_spmv(blocks: torch.Tensor, block_cols: torch.Tensor,
         Y.data_ptr(), nb_r, mb, bs, X.shape[1], B,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"bsr_spmv launch failed: cudaError_t {err}")
+        raise KernelLaunchError(
+            f"bsr_spmv launch failed: cudaError_t {err}")
     launches[name] += 1
     return Y[0] if x.dim() == 1 else Y

@@ -25,6 +25,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels._build import KernelLaunchError
 from repro_torch.kernels.ref import (pagerank_step_fused_ref,
                                      pagerank_step_ref)
 
@@ -69,8 +70,9 @@ def _library():
         lib.pagerank_step_fused_rows_per_block.restype = ctypes.c_int
         rows = lib.pagerank_step_fused_rows_per_block()
         if rows != ROWS_PER_CTA:
-            raise RuntimeError(f"pagerank_step.cu owns {rows} rows per CTA, "
-                               f"the wrapper expects {ROWS_PER_CTA}")
+            raise _build.KernelBuildError(
+                f"pagerank_step.cu owns {rows} rows per CTA, the wrapper "
+                f"expects {ROWS_PER_CTA}")
         _lib = lib
     return _lib
 
@@ -139,7 +141,7 @@ def pagerank_step_fused(Hp: torch.Tensor, xp: torch.Tensor,
         partials.data_ptr(), leak.data_ptr(), Np, Mp, float(d),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(
+        raise KernelLaunchError(
             f"pagerank_step_fused launch failed: cudaError_t {err}")
     launches[name] += 1
     return yp, leak
@@ -187,7 +189,8 @@ def pagerank_step(H: torch.Tensor, pr: torch.Tensor, t, *,
         code, H.data_ptr(), pr.data_ptr(), t.data_ptr(), y.data_ptr(), N, M,
         float(d), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"pagerank_step launch failed: cudaError_t {err}")
+        raise KernelLaunchError(
+            f"pagerank_step launch failed: cudaError_t {err}")
     step_launches[name] += 1
     return y
 

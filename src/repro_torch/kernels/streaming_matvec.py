@@ -26,6 +26,7 @@ from collections import Counter
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels._build import KernelLaunchError
 from repro_torch.kernels.ref import streaming_matvec_ref
 
 __all__ = ["streaming_matvec", "launches", "batch_launches",
@@ -104,7 +105,7 @@ def streaming_matvec(W: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
         code, W.data_ptr(), X.data_ptr(), Y.data_ptr(), N, M, B,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(
+        raise KernelLaunchError(
             f"streaming_matvec launch failed: cudaError_t {err}")
     launches[name] += 1
     batch_launches[name, B] += 1

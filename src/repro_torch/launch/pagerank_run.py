@@ -7,7 +7,9 @@ tiers named by ``--backend`` (by default the split-ELL tier and the
 fused-kernel tier; ``bsr`` is the block-sparse tier on its kernel), the
 fused and ``bsr`` tiers at the chosen storage precision.  Prints each
 tier's max|diff| against dense, its ``run`` wall time, and the top-k
-proteins; a float32 tier that disagrees with dense fails the run.
+proteins; a float32 tier that disagrees with dense fails the run.  Last
+comes the paper's model of its own fabric (``paper_fabric_model``, from
+:mod:`repro_torch.core.timing`), printed apart from the card's times.
 
 Usage (on the card; ``--device cpu`` runs the plain versions on the CPU):
     python -m repro_torch.launch.pagerank_run --nodes 5000 --iters 100
@@ -22,6 +24,7 @@ import time
 import torch
 
 from repro_torch.configs.pagerank_5k import full as pagerank_cfg
+from repro_torch.core import timing
 from repro_torch.graph import generators as gen
 from repro_torch.graph import transition as tr
 from repro_torch.kernels.common import resolve_device
@@ -95,6 +98,13 @@ def run(argv=None):
     print(f"\nrun({iters}) wall time on {name}:")
     for k, v in results.items():
         print(f"  {k:>40}: {v * 1e3:9.2f} ms")
+    # the paper's model of its fabric, not a time of this device
+    results["paper_fabric_model"] = timing.pagerank_latency_s(n, iters)
+    print(f"\npaper_fabric_model (the paper's model of its own fabric, "
+          f"N={n}, {iters} iters): "
+          f"{results['paper_fabric_model'] * 1e3:.2f} ms")
+    print("  (paper reports 213.6 ms for N=5000, 100 iters @200MHz, "
+          "4096 sites)")
     return results
 
 

@@ -1,4 +1,6 @@
 from repro_torch.serve.cache import CacheEntry, ResultCache
-from repro_torch.serve.engine import PageRankQueryEngine, PPRQuery
+from repro_torch.serve.engine import (PageRankQueryEngine, PPRQuery,
+                                      ServeResilience)
 
-__all__ = ["PageRankQueryEngine", "PPRQuery", "CacheEntry", "ResultCache"]
+__all__ = ["PageRankQueryEngine", "PPRQuery", "ServeResilience",
+           "CacheEntry", "ResultCache"]

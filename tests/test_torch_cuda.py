@@ -539,3 +539,128 @@ def test_dynamic_update_on_card(cuda, backend):
     ref = PageRankEngine(s2, d2, n, backend="dense", device=cuda,
                          metrics=NullRegistry()).run(300)
     assert float(torch.sum(torch.abs(pr - ref))) <= 1e-5
+
+
+# --------------------------------------------------------------------- #
+# non-finite input: the resilient path's watchdog verdicts rest on it   #
+# --------------------------------------------------------------------- #
+POISON = {"nan": float("nan"), "inf": float("inf"), "huge": 1e4}
+
+
+def _poison_cases(places, int8_places=("x",)):
+    """(precision, kind, place) triples: an int8 H holds no NaN, Inf or
+    1e4, so int8 is poisoned in x (and in K1's row scales)."""
+    return [(p, k, place) for p in STORE for k in POISON
+            for place in (int8_places if p == "int8" else places)]
+
+
+def _plant(t, idx, val):
+    """Write ``val`` at ``idx`` of a tensor in its storage dtype."""
+    t[idx] = torch.tensor(val, dtype=torch.float32).to(t.dtype)
+
+
+def _same_nonfinite(y, ref, what):
+    """The kernel's isfinite mask equals the plain version's entry by
+    entry, and its finite entries meet TOL32.  Values where both are
+    non-finite may differ: K2's split of an Inf takes Inf - Inf, NaN."""
+    fin = torch.isfinite(y)
+    assert torch.equal(fin, torch.isfinite(ref)), what
+    torch.testing.assert_close(y[fin], ref[fin], **TOL32, msg=what)
+
+
+@pytest.mark.parametrize("precision,kind,place", _poison_cases(
+    ("H", "pad", "x"), int8_places=("x", "scales", "pad_scales")))
+def test_fused_step_nonfinite_matches_plain(cuda, precision, kind, place):
+    """K1 with a NaN, an Inf or 1e4 in H, in a padded row of H (or of the
+    int8 row scales), or in x: the plain version's isfinite mask, and a
+    non-finite leak whenever any yp is, the padded rows included (0 * NaN
+    and 0 * Inf are NaN)."""
+    Np, Mp, n, m = 512, 768, 475, 747
+    Hp, xp, dangp, t, scales = _case(Np, Mp, precision, cuda, seed=13)
+    Hp[n:], Hp[:, m:] = 0, 0
+    xp[0, m:], dangp[0, n:] = 0, 0
+    val = POISON[kind]
+    if place == "H":
+        _plant(Hp, (n // 2, m // 3), val)
+    elif place == "pad":
+        _plant(Hp, (Np - 3, m // 3), val)       # a padded row of H
+    elif place == "x":
+        _plant(xp, (0, m // 3), val)
+    elif place == "scales":
+        _plant(scales, (0, n // 2), val)
+    else:
+        _plant(scales, (0, Np - 3), val)        # a padded row's scale
+    yp, leak = k1.pagerank_step_fused(Hp, xp, dangp, t, scales)
+    torch.cuda.synchronize()
+    yr, lr = pagerank_step_fused_ref(Hp, xp, dangp, t, scales)
+    _same_nonfinite(yp, yr, f"K1 {precision} {kind} in {place}")
+    _same_nonfinite(leak.reshape(1), lr.reshape(1), "K1 leak")
+    if not torch.isfinite(yp).all():
+        assert not torch.isfinite(leak)
+    if kind != "huge" and place in ("pad", "pad_scales"):
+        assert not torch.isfinite(yp[0, Np - 3]) and not torch.isfinite(leak)
+
+
+@pytest.mark.parametrize("B", [1, 8, 64])
+@pytest.mark.parametrize("precision,kind,place", _poison_cases(("H", "x")))
+def test_streaming_matvec_nonfinite_matches_plain(cuda, precision, kind,
+                                                  place, B):
+    W, X = _smv_case(640, 768, B, precision, cuda, seed=B + 29)
+    if place == "H":
+        _plant(W, (100, 300), POISON[kind])
+    else:
+        _plant(X, (B - 1, 300), POISON[kind])
+    Y = k2.streaming_matvec(W, X)
+    torch.cuda.synchronize()
+    _same_nonfinite(Y, streaming_matvec_ref(W, X),
+                    f"K2 {precision} B={B} {kind} in {place}")
+
+
+@pytest.mark.parametrize("B", [1, 8, 64])
+@pytest.mark.parametrize("precision,kind,place",
+                         _poison_cases(("H", "pad", "x")))
+def test_bsr_spmv_nonfinite_matches_plain(cuda, precision, kind, place, B):
+    """K3 with a NaN, an Inf or 1e4 in a real block, in a padded slot (a
+    zero block at block column 0, accumulated like any other) or in x."""
+    n, bs = 384, 128
+    rng = np.random.default_rng(B + 31)
+    A = rng.random((n, n), dtype=np.float32) * (2.0 / n)
+    A[:bs, bs:] = 0.0               # block row 0: one block, two padded
+    bsr = BSRMatrix.from_dense(A, bs=bs, device="cpu")
+    assert bsr.blocks.shape[1] == 3 and int(bsr.block_cols[0, 2]) == 0
+    blocks = bsr.blocks
+    if precision == "int8":
+        blocks = torch.round(blocks * (127.0 * n / 2.0)).to(torch.int8)
+    else:
+        blocks = blocks.to(STORE[precision])
+    blocks, cols = blocks.to(cuda), bsr.block_cols.to(cuda)
+    X = torch.from_numpy(rng.dirichlet(np.ones(n), size=B).astype(
+        np.float32)).to(cuda)
+    if place == "H":
+        _plant(blocks, (1, 1, 5, 7), POISON[kind])
+    elif place == "pad":
+        _plant(blocks, (0, 2, 5, 7), POISON[kind])
+    else:
+        _plant(X, (B - 1, 7), POISON[kind])
+    Y = k3.bsr_spmv(blocks, cols, X)
+    torch.cuda.synchronize()
+    ref = bsr_spmv_ref(blocks, cols, X)
+    _same_nonfinite(Y, ref, f"K3 {precision} B={B} {kind} in {place}")
+    if place == "pad" and kind != "huge":
+        assert not torch.isfinite(Y[:, 5]).any()
+
+
+@pytest.mark.parametrize("precision,kind,place", _poison_cases(("H", "x")))
+def test_pagerank_step_nonfinite_matches_plain(cuda, precision, kind,
+                                               place):
+    W, X = _smv_case(1000, 1000, 1, precision, cuda, seed=37)
+    x = X[0].clone()
+    if place == "H":
+        _plant(W, (400, 300), POISON[kind])
+    else:
+        _plant(x, (300,), POISON[kind])
+    t = torch.tensor(0.15 / 1000, device=cuda)
+    y = k1.pagerank_step(W, x, t, d=0.85)
+    torch.cuda.synchronize()
+    _same_nonfinite(y, pagerank_step_ref(W, x, t, d=0.85),
+                    f"K4 {precision} {kind} in {place}")

@@ -397,7 +397,8 @@ def test_launcher_runs_on_cpu(capsys):
                             "--device", "cpu", "--precision", "bf16"])
     out = capsys.readouterr().out
     assert "fused_dense[bf16]" in out and "top-10 proteins" in out
-    assert set(res) == {"engine_dense", "engine_fused_dense[bf16]"} | {
+    assert set(res) == {"engine_dense", "engine_fused_dense[bf16]",
+                        "paper_fabric_model"} | {
         k for k in res if k.startswith("engine_ell")}
 
 
@@ -425,6 +426,10 @@ def test_import_hygiene_subprocess():
         "from repro_torch.serve import PageRankQueryEngine, ResultCache\n"
         "from repro_torch.pagerank import DynamicPageRankEngine\n"
         "from repro_torch.pagerank.resilience import EngineSnapshot\n"
+        "from repro_torch.pagerank import FaultInjector\n"
+        "from repro_torch.graph.validate import validate_delta\n"
+        "from repro_torch.serve import ServeResilience\n"
+        "from repro_torch.core import timing\n"
         "from repro_torch.graph import (BSRMatrix, ELLMatrix,\n"
         "    build_transition_bsr, build_transition_ell)\n"
         "from repro_torch.graph.delta import (EdgeStream, GraphDelta,\n"
@@ -458,6 +463,13 @@ def test_import_hygiene_subprocess():
         "    qe.push_update(st.step()); qe.push_update(st.step())\n"
         "    qe.query_batch([[1, 2]]); snap = dyn.snapshot()\n"
         "    assert qe.n_refreshes == 1; dyn.restore(snap)\n"
+        "    rq = PageRankQueryEngine(dyn, n_iters=20,\n"
+        "                             resilience=ServeResilience())\n"
+        "    FaultInjector(seed=0).corrupt_layout(dyn, kind='nan')\n"
+        "    rq.push_update(st.step()); q = rq.submit(0, [1, 2]); rq.flush()\n"
+        "    assert rq.last_refresh_outcome.status in ('ok', 'recovered')\n"
+        "    assert q.status == 'fresh'\n"
+        "assert round(timing.pagerank_latency_s(5000, 100) * 1e3, 1) == 213.6\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"

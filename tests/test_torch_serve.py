@@ -20,7 +20,7 @@ from repro_torch.pagerank.convert import layout_from_numpy
 from repro_torch.pagerank.fidelity import kendall_tau, topk_overlap
 from repro_torch.pagerank.landmarks import _key_slice
 from repro_torch.serve import (CacheEntry, PageRankQueryEngine, PPRQuery,
-                               ResultCache)
+                               ResultCache, ServeResilience)
 
 BACKEND_MAP = {"dense": "dense", "ell": "ell", "fused_dense": "pallas_dense"}
 PRECISIONS = ("f32", "bf16", "f16", "int8")
@@ -319,8 +319,14 @@ def test_static_engine_refuses_updates_and_resilience(net):
     qe = PageRankQueryEngine(t)
     with pytest.raises(TypeError, match="DynamicPageRankEngine"):
         qe.push_update(object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        PageRankQueryEngine(t, resilience=object())
+    # the resilient mode takes a static engine, as the JAX package's does,
+    # and still refuses its updates
+    rq = PageRankQueryEngine(t, resilience=ServeResilience())
+    with pytest.raises(TypeError, match="DynamicPageRankEngine"):
+        rq.push_update(object())
+    q = rq.submit(0, [1, 2])
+    rq.flush()
+    assert q.status == "fresh" and q.graph_version == 0
 
 
 def test_serve_defaults_to_cuda(net, monkeypatch):
