@@ -66,6 +66,20 @@ result line):
    final f32 ranks to the CPU run's and to a from-scratch solve; then the
    watchdog's cost per iteration, ``restore`` against a cold solve and
    the clean-tick flush of the resilient mode against the legacy one;
+3g. the fabric simulator (``repro_torch.core``): the six Fig. 5 words
+   decoded and encoded bit-exact on the card; Fig. 2 on a 1 x 4 fabric
+   (7.4, 0 conflicts); the Fig. 5 testbench on a 4 x 4 fabric, every
+   cycle's wires bit-equal to the CPU run; a hop-mode matvec of a random
+   64 x 64 matrix on the whole 64 x 65 fabric (0 conflicts, 67 steps, equal
+   to fast mode at rtol 1e-6); ``pagerank_on_fabric`` at N = 64 against
+   ``pagerank_dense_fixed``; the Fig. 4C ``pagerank_tiled`` over the
+   5000-protein network, 100 iterations, against ``pagerank_dense_fixed``
+   (rtol 1e-4, atol 1e-7, top-10 identical, 42,728,000 steps) and 3 of its
+   iterations against the CPU (rtol 1e-6); ``examples/torch_quickstart.py``
+   on the card; then the tiled run's time and device launches per
+   iteration and one hop-mode cycle's time on the 64 x 65 fabric (CUDA
+   events, median of 5), with the paper's 213.6 ms printed beside as the
+   model of its own fabric;
 4. times on the card (CUDA events, medians) beside each kernel's bound:
    the kernel, its plain version and the library call each with the L2
    cache flushed before the call, and the kernel back to back as well
@@ -82,14 +96,17 @@ result line):
    held to the ``fused_dense`` index's), wall time, median of 5, beside
    the same on ``fused_dense``.
 
-The last lines are a JSON object ``{"kernels": [...]}``, the card's name
-and power limit as ``nvidia-smi`` prints them, and the result line
+Then it prints its total time and a JSON object of its measurements.  The
+last lines are a JSON object ``{"kernels": [...]}``, the card's name and
+power limit as ``nvidia-smi`` prints them, and the result line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
+import os
 from collections import Counter
 import re
 import statistics
@@ -165,6 +182,18 @@ FAULTY_SCRIPT = (("delta", "out_of_range"), ("delta", "negative"),
                  ("delta", "dup_flood"), ("layout", "inf"),
                  ("layout", "huge"), ("serve", "nan"), ("rebuild", "nan"),
                  ("clean", None))
+# phase 3g: the six messages of the paper's Fig. 5 testbench as
+# tests/test_isa.py lists them (hex, opcode, dest, value, next opcode, next
+# dest), LEFT-1 first; Prog = 1, A_ADD = 4, A_ADDS = 7
+FIG5_MESSAGES = (("00f44121999a0051", 1, 5, 10.1, 4, 15),
+                 ("00f44111999a0091", 1, 9, 9.1, 4, 15),
+                 ("00f44101999a0091", 1, 9, 8.1, 4, 15),
+                 ("00f440e333330091", 1, 9, 7.1, 4, 15),
+                 ("00d7404000000091", 1, 9, 3.0, 7, 13),
+                 ("00f440c333330091", 1, 9, 6.1, 4, 15))
+# the paper's fabric (64 x 64 sites + the adder column) and its Fig. 4C step
+# count at N = 5000 and 100 iterations (213.64 ms at 200 MHz)
+FABRIC_SIDE, TILED_STEPS = 64, 42_728_000
 # the tiers of phase 3f: K1 and K2 (f32, and bf16, whose float operand for
 # the injector is the dangling mask), and K3
 RESILIENT_TIERS = (("fused_dense", "f32"), ("fused_dense", "bf16"),
@@ -580,7 +609,240 @@ def check_faulty_stream(np, card, cpu, what):
           f"{what}: the raising update {st['update:None']}")
 
 
+def kernel_label(name: str) -> str:
+    """A short name for a PyTorch elementwise kernel: its functor (the
+    profiler's names are whole template instantiations)."""
+    m = re.search(r"\b(?!Binary)(\w+Functor\w*|direct_copy_kernel_cuda)",
+                  name)
+    return m.group(1) if m else name[:60]
+
+
+def fabric_phase(np, torch, dev, src, dst, card) -> dict:
+    """Phase 3g: the fabric simulator on the card.  Raises on any failure;
+    returns the measurements."""
+    from repro_torch.core import fabric as fab
+    from repro_torch.core import isa, schedule, timing
+    from repro_torch.graph.generators import protein_network
+    from repro_torch.graph.transition import build_transition_dense
+    from repro_torch.pagerank import pagerank_on_fabric
+    from repro_torch.pagerank.dense import pagerank_dense_fixed
+    from repro_torch.pagerank.sparse import top_k_proteins
+    cpu = torch.device("cpu")
+    Message = isa.Message
+    out = {}
+
+    # the codec: the six Fig. 5 words, both ways, bit for bit
+    for hx, op, dest, val, nop, ndest in FIG5_MESSAGES:
+        m = isa.from_hex(hx, device=dev)
+        check(m.value.device.type == dev.type, "from_hex left the card")
+        check((int(m.opcode), int(m.dest), float(m.value),
+               int(m.next_opcode), int(m.next_dest))
+              == (op, dest, float(np.float32(val)), nop, ndest),
+              f"decode {hx}: {isa.describe(m)}")
+        got = isa.to_hex(Message.make(op, dest, val, nop, ndest,
+                                      device=dev))
+        check(got == hx, f"encode {isa.describe(m)}: {got}, want {hx}")
+    print(f"  codec: the {len(FIG5_MESSAGES)} Fig. 5 words decode and "
+          "encode bit-exact on the card")
+
+    def one(m, n, i):
+        """An (n,) edge of empty messages with ``m`` in slot ``i``."""
+        hit = torch.arange(n, device=m.opcode.device) == i
+        return m.map(lambda x: torch.where(hit, x, torch.zeros_like(x)))
+
+    # Fig. 2: 1.1 * 1 + 1.2 * 2 + 1.3 * 3 at site 3 of a 1 x 4 fabric
+    seq = [(isa.PROG, 2, 1.3, isa.UPDATE, 3), (isa.PROG, 1, 1.2, isa.A_ADD, 3),
+           (isa.PROG, 0, 1.1, isa.A_ADD, 3), (isa.A_MULS, 2, 3.0, 0, 0),
+           (isa.A_MULS, 1, 2.0, 0, 0), (isa.A_MULS, 0, 1.0, 0, 0)]
+    left = isa.stack([one(Message.make(*a, device=dev), 1, 0) for a in seq])
+    fin, _ = fab.run(fab.Fabric.create(1, 4, dev), left,
+                     Message.empty((len(seq), 4), device=dev),
+                     extra_cycles=10)
+    fig2 = fin.values[0].cpu().numpy()
+    check(bool(np.allclose(fig2[:3], [1.1, 1.2, 1.3], rtol=1e-6, atol=0))
+          and abs(float(fig2[3]) - 7.4) <= 7.4e-6
+          and int(fin.conflicts) == 0,
+          f"Fig. 2: {fig2}, conflicts {int(fin.conflicts)}")
+    out["fig2"] = float(fig2[3])
+    print(f"  Fig. 2 on a 1 x 4 fabric: site 3 holds {fig2[3]:.6f}, "
+          "0 conflicts")
+
+    # Fig. 5: the testbench on a 4 x 4 fabric, every cycle's wires held to
+    # the CPU run bit for bit (hop mode is elementwise float32 only)
+    def fig5(device):
+        msgs = [isa.from_hex(m[0], device=device) for m in FIG5_MESSAGES]
+        T = len(msgs) - 1
+        left = isa.stack([one(msgs[0], 4, 1)]
+                         + [Message.empty((4,), device=device)] * (T - 1))
+        top = isa.stack([one(m, 4, 1) for m in msgs[1:]])
+        return fab.run(fab.Fabric.create(4, 4, device), left, top,
+                       extra_cycles=6)
+
+    def leaves(obj):
+        if isinstance(obj, (tuple, list)):
+            return [x for o in obj for x in leaves(o)]
+        if dataclasses.is_dataclass(obj):
+            return leaves([getattr(obj, f.name)
+                           for f in dataclasses.fields(obj)])
+        obj = obj.cpu()
+        return [obj.view(torch.int32) if obj.dtype == torch.float32 else obj]
+
+    card_run, cpu_run = fig5(dev), fig5(cpu)
+    check(all(torch.equal(a, b) for a, b in zip(leaves(card_run),
+                                                leaves(cpu_run))),
+          "Fig. 5: the card's wires or state differ from the cpu run's")
+    fin, (_, down) = card_run
+    ops = down.opcode[:, 1, 1].cpu().numpy()
+    vals = down.value[:, 1, 1].cpu().numpy()
+    carried = [float(v) for o, v in zip(ops, vals) if o == isa.PROG]
+    check(np.allclose(carried, [9.1, 8.1, 7.1, 3.0, 6.1], rtol=1e-6)
+          and abs(float(fin.values[1, 1]) - 10.1) < 1e-5
+          and abs(float(fin.values[2, 1]) - 6.1) < 1e-5
+          and int(fin.conflicts) == 0,
+          f"Fig. 5: down wire of site 5 carried {carried}")
+    print(f"  Fig. 5 on a 4 x 4 fabric: {len(ops)} cycles, every wire and "
+          "the final state bit-equal to the cpu run; site 5's down wire "
+          f"carried {carried}, site 5 holds 10.1, site 9 6.1, 0 conflicts")
+
+    # hop mode at full width: a 64 x 64 matrix loaded by Prog messages onto
+    # the whole 64 x 65 fabric
+    rng = np.random.default_rng(SEED)
+    side = FABRIC_SIDE
+    A = torch.from_numpy(rng.standard_normal((side, side)).astype(
+        np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal(side).astype(np.float32)).to(dev)
+    slow = schedule.matvec(A, b, use_messages=True)
+    fast = schedule.matvec(A, b)
+    check(slow.state.shape == (side, side + 1)
+          and int(slow.state.conflicts) == 0
+          and slow.steps == fast.steps == side + 3,
+          f"hop mode: shape {slow.state.shape}, conflicts "
+          f"{int(slow.state.conflicts)}, steps {slow.steps}")
+    out["hop_matvec_max_abs_diff"] = allclose(
+        torch, slow.result, fast.result, rtol=1e-6, atol=0.0,
+        what="hop-mode matvec vs fast mode")
+    print(f"  hop-mode matvec on the {side} x {side + 1} fabric: "
+          f"{2 * side} cycles, 0 conflicts, {slow.steps} steps, vs fast "
+          f"mode max|diff| {out['hop_matvec_max_abs_diff']:.3e} (rtol 1e-6)")
+
+    # the untiled schedule at the fabric's limit, N = 64
+    s64, d64 = protein_network(side, seed=SEED)
+    H64 = build_transition_dense(s64, d64, side, device=dev)
+    pr64, steps64, secs64 = pagerank_on_fabric(H64, n_iters=N_ITERS)
+    check(steps64 == N_ITERS * (side + 6), f"untiled steps {steps64}")
+    out["untiled_max_abs_diff"] = allclose(
+        torch, pr64, pagerank_dense_fixed(H64, N_ITERS), rtol=1e-4,
+        atol=0.0, what="pagerank_on_fabric(N=64) vs pagerank_dense_fixed")
+    print(f"  pagerank_on_fabric N = {side}, {N_ITERS} iterations: "
+          f"{steps64} steps, vs pagerank_dense_fixed max|diff| "
+          f"{out['untiled_max_abs_diff']:.3e} (rtol 1e-4)")
+
+    # Fig. 4C at the paper's size: the 5000-protein network's dense H
+    H = build_transition_dense(src, dst, N_NODES, device=dev)
+    tiled = schedule.pagerank_tiled(H, n_iters=N_ITERS)
+    ref = pagerank_dense_fixed(H, N_ITERS)
+    check(tiled.steps == TILED_STEPS == timing.pagerank_steps_tiled(
+        N_NODES, N_ITERS), f"tiled steps {tiled.steps}")
+    out["tiled_max_abs_diff"] = allclose(
+        torch, tiled.result, ref, rtol=1e-4, atol=1e-7,
+        what="pagerank_tiled(N=5000) vs pagerank_dense_fixed")
+    top_t, _ = top_k_proteins(tiled.result, 10)
+    top_r, _ = top_k_proteins(ref, 10)
+    check(top_t.tolist() == top_r.tolist(),
+          f"tiled top-10 {top_t.tolist()} vs {top_r.tolist()}")
+    short = schedule.pagerank_tiled(H, n_iters=3)
+    out["tiled3_vs_cpu_max_abs_diff"] = allclose(
+        torch, short.result.cpu(),
+        schedule.pagerank_tiled(H.cpu(), n_iters=3).result, rtol=1e-6,
+        atol=0.0, what="3 tiled iterations, card vs cpu")
+    print(f"  pagerank_tiled N = {N_NODES}, {N_ITERS} iterations: "
+          f"{tiled.steps} steps; vs pagerank_dense_fixed max|diff| "
+          f"{out['tiled_max_abs_diff']:.3e} (rtol 1e-4, atol 1e-7), top-10 "
+          f"identical {top_t.tolist()}; 3 iterations vs the cpu max|diff| "
+          f"{out['tiled3_vs_cpu_max_abs_diff']:.3e} (rtol 1e-6)")
+
+    # the port's quickstart on the card
+    t0 = time.perf_counter()
+    qs = subprocess.run([sys.executable,
+                         str(ROOT / "examples" / "torch_quickstart.py")],
+                        capture_output=True, text=True, timeout=600,
+                        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)})
+    check(qs.returncode == 0 and qs.stdout.rstrip().endswith(
+        "quickstart: ALL OK"), f"torch_quickstart.py exited "
+        f"{qs.returncode}: {qs.stdout[-2000:]} {qs.stderr[-2000:]}")
+    out["quickstart_s"] = time.perf_counter() - t0
+    print(f"  examples/torch_quickstart.py on the card: exit 0 "
+          f"({out['quickstart_s']:.2f} s)")
+
+    # times: CUDA events, median of 5
+    def event_ms(fn):
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    out["tiled_100_ms"] = event_ms(
+        lambda: schedule.pagerank_tiled(H, n_iters=N_ITERS))
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    # device launches and the device's busy time per iteration: a run of
+    # 3 iterations less a run of 1, halved, so the set-up drops out
+    counts, busy = {}, {}
+    for iters in (1, 3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            schedule.pagerank_tiled(H, n_iters=iters)
+            torch.cuda.synchronize()
+        counts[iters], busy[iters] = Counter(), Counter()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                counts[iters][e.name] += 1
+                busy[iters][e.name] += e.time_range.elapsed_us()
+    per_iter = (counts[3].total() - counts[1].total()) / 2 or None
+    out["tiled_launches_per_iteration"] = per_iter
+    out["tiled_busy_us_per_iteration"] = (
+        (busy[3].total() - busy[1].total()) / 2 if per_iter else None)
+    # the kernels that take the most device time per iteration
+    out["tiled_kernels_per_iteration"] = sorted(
+        ({"kernel": k, "launches": (counts[3][k] - counts[1][k]) / 2,
+          "us": (busy[3][k] - busy[1][k]) / 2} for k in busy[3]),
+        key=lambda r: -r["us"])[:4]
+    cycle = slow.state
+    # A_ADD messages for the bottom row enter every column's top port
+    inj_t = Message.make(isa.A_ADD, torch.arange(
+        (side - 1) * (side + 1), side * (side + 1), device=dev), 1.0)
+    inj_l = Message.empty((side,), device=dev)
+    out["hop_cycle_ms"] = eager_ms(torch, lambda: fab.step(cycle, inj_l,
+                                                            inj_t),
+                                   reps=20, rounds=5)
+    model_ms = timing.pagerank_latency_s(N_NODES, N_ITERS) * 1e3
+    print(f"  times on {card} (CUDA events, median of 5): pagerank_tiled "
+          f"N = {N_NODES}, {N_ITERS} iterations {out['tiled_100_ms']:.3f} "
+          "ms, "
+          + (f"{per_iter:.0f} device launches and "
+             f"{out['tiled_busy_us_per_iteration']:.1f} us of kernel time "
+             "per iteration (torch.profiler, 3 iterations less 1)"
+             if per_iter else "launches and kernel time per iteration not "
+             "measured (the profiler recorded no device events)")
+          + "".join(f"; {r['launches']:.0f} x {kernel_label(r['kernel'])} "
+                    f"{r['us']:.1f} us" for r in
+                    out["tiled_kernels_per_iteration"])
+          + f"; one hop-mode cycle on the {side} x {side + 1} fabric "
+          f"{out['hop_cycle_ms']:.3f} ms (20 back to back); the paper's "
+          f"model of its own fabric for the same run: {model_ms:.2f} ms at "
+          "200 MHz (printed beside, not compared)")
+    return out
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from the "
               "repository root", file=sys.stderr)
@@ -1499,6 +1761,17 @@ def main() -> int:
                        "phase_s": time.perf_counter() - t_res}
     print(f"  resilient phase took {resilient_stats['phase_s']:.2f} s")
 
+    # --------------------------------------------------------------- 3g --
+    print("fabric simulator: the Fig. 5 codec, Fig. 2 and Fig. 5 in hop "
+          f"mode, a hop-mode matvec on the {FABRIC_SIDE} x "
+          f"{FABRIC_SIDE + 1} fabric, pagerank_on_fabric at N = "
+          f"{FABRIC_SIDE} and the Fig. 4C tiled schedule at N = {N_NODES}, "
+          f"{N_ITERS} iterations")
+    t_fab = time.perf_counter()
+    fabric_stats = fabric_phase(np, torch, dev, src, dst, card)
+    fabric_stats["phase_s"] = time.perf_counter() - t_fab
+    print(f"  fabric phase took {fabric_stats['phase_s']:.2f} s")
+
     # ---------------------------------------------------------------- 4 --
     print(f"times on {card} (CUDA events, medians of CUDA-graph replays; "
           "'flushed': one call after a 256 MiB write evicts the L2, "
@@ -1840,6 +2113,7 @@ def main() -> int:
         print("  fused_dense launches per iteration: not measured "
               "(the profiler recorded no device events)")
 
+    print(f"chip_smoke took {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"run_ms": run_ms, "run_tol_ms": tol_ms,
                       "run_tol_iters": iters, "build_s": built["seconds"],
                       "main_path_s": main_s, "serve": serve_stats,
@@ -1850,6 +2124,7 @@ def main() -> int:
                                    "k4_launches": k4_launches},
                       "live": live, "k3_serve_paths": e2e,
                       "resilient": resilient_stats,
+                      "fabric": fabric_stats,
                       "k2_launches_by_step": {
                           step: {f"{p},B={b}": n for (p, b), n in c.items()}
                           for step, c in k2_steps.items()},

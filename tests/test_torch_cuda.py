@@ -2,8 +2,9 @@
 the streaming matvec K2, the BSR SpMV K3 and the unpadded step K4) against
 their plain versions, the wrappers' checks on CUDA tensors, the engine's
 fused and ``bsr`` tiers (``run``, ``run_tol`` and batched PPR) with their
-launch counts, ``ops.pagerank_iteration``, and one dynamic update per
-patchable tier.  K2 and K3 run at every batch width of their kernels,
+launch counts, ``ops.pagerank_iteration``, one dynamic update per
+patchable tier, and the fabric simulator (hop mode, the full-width
+hop-mode matvec and the tiled schedule) against its CPU run.  K2 and K3 run at every batch width of their kernels,
 and a NaN in one query's x is held to that query.  K1 and K4 run at the
 edges of their row-streaming core (one CTA's rows, fewer rows than SMs,
 rows that are not 16-byte aligned, H at an element offset), a NaN in x
@@ -15,13 +16,18 @@ On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import fabric, isa, schedule
+from repro_torch.core.convert import fabric_from_numpy, message_from_numpy
 from repro_torch.graph.delta import GraphDelta, apply_delta, edge_keys
 from repro_torch.graph.generators import protein_network
 from repro_torch.graph.sparse import BSRMatrix
+from repro_torch.graph.transition import build_transition_dense
 from repro_torch.kernels import bsr_spmv as k3
 from repro_torch.kernels import ops
 from repro_torch.kernels import pagerank_step as k1
@@ -664,3 +670,102 @@ def test_pagerank_step_nonfinite_matches_plain(cuda, precision, kind,
     torch.cuda.synchronize()
     _same_nonfinite(y, pagerank_step_ref(W, x, t, d=0.85),
                     f"K4 {precision} {kind} in {place}")
+
+
+# --------------------------------------------------------------------- #
+# the fabric simulator on the card, against its CPU run                 #
+# --------------------------------------------------------------------- #
+def _msgs(rng, shape, n_sites, live):
+    op = rng.integers(1, 11, shape).astype(np.int32)
+    op[rng.random(shape) >= live] = isa.NOP
+    return {"opcode": op,
+            "dest": rng.integers(0, n_sites, shape).astype(np.int32),
+            "value": (rng.uniform(0.5, 2.0, shape)
+                      * rng.choice([-1.0, 1.0], shape)).astype(np.float32),
+            "next_opcode": rng.integers(1, 11, shape).astype(np.int32),
+            "next_dest": rng.integers(0, n_sites, shape).astype(np.int32)}
+
+
+def _tree(obj):
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _tree(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, tuple):
+        return tuple(_tree(o) for o in obj)
+    return obj.cpu()
+
+
+def _same_bits(a, b, path="state"):
+    if isinstance(a, dict):
+        for k in a:
+            _same_bits(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, tuple):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_bits(x, y, f"{path}[{i}]")
+    else:
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), path
+
+
+@pytest.mark.parametrize("rows,cols,seed", [(4, 4, 0), (8, 9, 1), (64, 65, 2)])
+def test_fabric_hop_mode_matches_cpu(cuda, rows, cols, seed):
+    """A random programmed state with messages on every wire and random
+    injections at both edges: every cycle's wires, the final state and the
+    conflict count on the card equal the CPU run's bit for bit."""
+    rng = np.random.default_rng(seed)
+    n, T = rows * cols, 12
+    start = {"values": (rng.uniform(0.5, 2.0, (rows, cols))
+                        * rng.choice([-1.0, 1.0], (rows, cols))
+                        ).astype(np.float32),
+             "next_opcode": rng.integers(1, 11, (rows, cols)).astype(np.int32),
+             "next_dest": rng.integers(0, n, (rows, cols)).astype(np.int32),
+             "right": _msgs(rng, (rows, cols), n, 0.5),
+             "down": _msgs(rng, (rows, cols), n, 0.5),
+             "conflicts": np.zeros((), np.int32)}
+    left, top = (_msgs(rng, (T, k), n, 0.7) for k in (rows, cols))
+    card, cpu = (_tree(fabric.run(
+        fabric_from_numpy(start, device=dev),
+        message_from_numpy(left, device=dev),
+        message_from_numpy(top, device=dev), extra_cycles=rows + cols))
+        for dev in (cuda, torch.device("cpu")))
+    _same_bits(card, cpu)
+    assert int(card[0]["conflicts"]) > 0
+
+
+def test_fabric_matvec_hop_mode_full_width(cuda):
+    """The whole 64 x 65 fabric loaded by Prog messages: 0 conflicts, 67
+    steps, equal to fast mode at rtol 1e-6 and to the CPU run's bits."""
+    rng = np.random.default_rng(41)
+    A = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(64).astype(np.float32))
+    slow = schedule.matvec(A.to(cuda), b.to(cuda), use_messages=True)
+    fast = schedule.matvec(A.to(cuda), b.to(cuda))
+    assert slow.state.device.type == "cuda" and slow.state.shape == (64, 65)
+    assert int(slow.state.conflicts) == 0 and slow.steps == fast.steps == 67
+    torch.testing.assert_close(slow.result, fast.result, rtol=1e-6, atol=0)
+    cpu = schedule.matvec(A, b, use_messages=True)
+    _same_bits(_tree(slow.state), _tree(cpu.state))
+
+
+@pytest.mark.parametrize("n,iters", [(130, 20), (300, 10)])
+def test_fabric_pagerank_tiled_matches_cpu(cuda, n, iters):
+    src, dst = protein_network(n, seed=1)
+    H = build_transition_dense(src, dst, n, device="cpu")
+    got = schedule.pagerank_tiled(H.to(cuda), n_iters=iters)
+    want = schedule.pagerank_tiled(H, n_iters=iters)
+    assert got.result.device.type == "cuda" and got.steps == want.steps
+    torch.testing.assert_close(got.result.cpu(), want.result, rtol=1e-6,
+                               atol=0)
+    torch.testing.assert_close(
+        got.result, pagerank_dense_fixed(H.to(cuda), iters), rtol=1e-4,
+        atol=1e-7)
+
+
+def test_fabric_creators_default_to_the_card(cuda):
+    assert fabric.Fabric.create(4, 4).device.type == "cuda"
+    assert isa.Message.make(isa.PROG, 5, 10.1).value.device.type == "cuda"
+    m = isa.from_hex("00f44121999a0051")
+    assert m.opcode.device.type == "cuda"
+    assert isa.to_hex(m) == "00f44121999a0051"

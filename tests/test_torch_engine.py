@@ -470,6 +470,26 @@ def test_import_hygiene_subprocess():
         "    assert rq.last_refresh_outcome.status in ('ok', 'recovered')\n"
         "    assert q.status == 'fresh'\n"
         "assert round(timing.pagerank_latency_s(5000, 100) * 1e3, 1) == 213.6\n"
+        "from repro_torch.core import fabric, isa, schedule\n"
+        "from repro_torch.core.convert import fabric_from_numpy\n"
+        "from repro_torch.pagerank import pagerank_on_fabric\n"
+        "from repro_torch.graph.transition import build_transition_dense\n"
+        "m = isa.from_hex('00f44121999a0051', device='cpu')\n"
+        "assert isa.to_hex(m) == '00f44121999a0051'\n"
+        "fab0 = fabric.Fabric.create(4, 4, 'cpu')\n"
+        "fin, _ = fabric.run(fab0, isa.Message.empty((2, 4), device='cpu'),\n"
+        "                    isa.Message.empty((2, 4), device='cpu'))\n"
+        "def arrays(obj):\n"
+        "    return {k: arrays(v) if isinstance(v, isa.Message) else\n"
+        "            v.numpy() for k, v in vars(obj).items()}\n"
+        "fabric_from_numpy(arrays(fin), device='cpu')\n"
+        "mv = schedule.matvec(torch.rand(4, 3), torch.rand(3),\n"
+        "                     use_messages=True)\n"
+        "assert mv.steps == 7 and int(mv.state.conflicts) == 0\n"
+        "H = build_transition_dense(src, dst, 64, device='cpu')\n"
+        "pr, steps, secs = pagerank_on_fabric(H, n_iters=3)\n"
+        "assert steps == 3 * 70\n"
+        "assert schedule.pagerank_tiled(H, n_iters=2).steps == 2 * 70\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
