@@ -80,6 +80,20 @@ result line):
    iteration and one hop-mode cycle's time on the 64 x 65 fabric (CUDA
    events, median of 5), with the paper's 213.6 ms printed beside as the
    model of its own fabric;
+3h. the sharded mesh tiers on the same network, every mesh position on
+   the one card (the device list is printed: a 2 x 2 mesh of one card is
+   not four cards): ``dense_sharded`` on 2 x 2 at f32 and bf16 and on
+   1 x 4 (the R != C re-injection) at f32, ``ell_sharded`` on 4 shards;
+   each runs ``run(100)`` (no host sync), ``run_tol(1e-6)``, ``ppr`` of 8
+   seed sets and a 64-hub landmark build, with K2's launches checked
+   exactly against the schedule (one per shard per iteration, by batch
+   size), held to the ``dense`` tier at its storage type (rtol 1e-5, atol
+   1e-7, top-10 identical, iterations within 1) and to the same calls on a
+   CPU mesh of the same shape; ``lower_run``'s collectives per iteration
+   and the wall times (median of 5, smallest and largest); then 16 live
+   ticks of the streaming stream on both sharded tiers (ranks within L1
+   1e-5 of a fresh solve), and K2 flushed at the 2500 x 2500 tile beside
+   ``torch.mv`` (a row of the kernel table);
 4. times on the card (CUDA events, medians) beside each kernel's bound:
    the kernel, its plain version and the library call each with the L2
    cache flushed before the call, and the kernel back to back as well
@@ -198,6 +212,19 @@ FABRIC_SIDE, TILED_STEPS = 64, 42_728_000
 # the injector is the dangling mask), and K3
 RESILIENT_TIERS = (("fused_dense", "f32"), ("fused_dense", "bf16"),
                    ("bsr", "f32"))
+# phase 3h: the sharded mesh tiers as (label, backend, mesh shape, axes,
+# storage type), every position on the one card: dense_sharded on 2 x 2
+# (the diagonal re-injection) at f32 and bf16 and on 1 x 4 (R != C),
+# ell_sharded on 4 shards; the live ticks run the first and the last
+SHARDED_TIERS = (
+    ("dense_sharded 2x2 f32", "dense_sharded", (2, 2), ("row", "col"),
+     "f32"),
+    ("dense_sharded 2x2 bf16", "dense_sharded", (2, 2), ("row", "col"),
+     "bf16"),
+    ("dense_sharded 1x4 f32", "dense_sharded", (1, 4), ("row", "col"),
+     "f32"),
+    ("ell_sharded 4 f32", "ell_sharded", (4,), ("shard",), "f32"))
+SHARDED_LIVE_TICKS = 16
 # K4's storage types on its path (ops.pagerank_iteration takes no int8
 # row scales, as in the JAX package)
 K4_PRECISIONS = ("f32", "bf16", "f16")
@@ -383,15 +410,7 @@ def cuda_ms_cold(torch, fn, flush, *, samples: int = 21) -> float:
 
 def wall_ms(torch, fn, *, rounds: int = 5) -> float:
     """Median host-clock time of ``fn`` ending in a device sync."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    return wall_stats(torch, fn, rounds=rounds)["median_ms"]
 
 
 def random_case(np, Np, Mp, precision, seed):
@@ -615,6 +634,273 @@ def kernel_label(name: str) -> str:
     m = re.search(r"\b(?!Binary)(\w+Functor\w*|direct_copy_kernel_cuda)",
                   name)
     return m.group(1) if m else name[:60]
+
+
+def wall_stats(torch, fn, *, rounds: int = 5) -> dict:
+    """Host-clock time of ``fn`` ending in a device sync, after one
+    warm-up call: the median of ``rounds`` with the smallest and largest
+    beside it."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"median_ms": statistics.median(times), "min_ms": min(times),
+            "max_ms": max(times)}
+
+
+def sharded_phase(np, torch, dev, src, dst, sets, card, flush) -> dict:
+    """Phase 3h: the sharded mesh tiers at the paper's size, each mesh of
+    the one card (``SHARDED_TIERS``).  Per tier: ``run(100)`` (no host
+    sync), ``run_tol(1e-6)``, ``ppr`` of ``sets`` and a 64-hub landmark
+    build, each with K2's launches zeroed before and read after and held
+    to the schedule (one launch per shard per iteration, at B = 1 for the
+    tiles and B = Q / C for the row blocks of PPR); each result held to
+    the ``dense`` tier at the same storage type (rtol 1e-5, atol 1e-7,
+    top-10 identical, iterations within 1) and to the same calls on a CPU
+    mesh of the same shape (rtol 1e-5, atol 1e-7); ``lower_run``'s
+    collectives per iteration; the wall times (median of 5, smallest and
+    largest).  Then 16 live ticks of the streaming stream on both sharded
+    tiers (the ranks within L1 1e-5 of a fresh solve) and K2 flushed at the
+    2500 x 2500 tile beside ``torch.mv`` on the same tile."""
+    from repro_torch.graph.delta import EdgeStream, apply_delta
+    from repro_torch.kernels import streaming_matvec as k2
+    from repro_torch.kernels.ref import streaming_matvec_ref
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs.registry import MetricsRegistry, NullRegistry
+    from repro_torch.obs.trace import CHUNK
+    from repro_torch.pagerank import (DynamicPageRankEngine, LandmarkIndex,
+                                      PageRankEngine)
+    from repro_torch.pagerank.sparse import top_k_proteins
+    from repro_torch.serve import PageRankQueryEngine
+
+    def engine(backend, p, mesh=None, device=None):
+        return PageRankEngine(src, dst, N_NODES, d=DAMPING, backend=backend,
+                              precision=p, mesh=mesh, device=device,
+                              metrics=NullRegistry())
+
+    def landmarks(eng):
+        return LandmarkIndex(eng, n_hubs=N_HUBS, tol=LM_TOL,
+                             max_pushes=LM_MAX_PUSHES, n_iters=N_ITERS,
+                             metrics=NullRegistry())
+
+    dense, dense_lm = {}, {}
+    launches = Counter()          # (storage, B, W shape) -> K2 launches
+    tiers = {}
+    for label, backend, shape, axes, p in SHARDED_TIERS:
+        t_tier = time.perf_counter()
+        k = int(np.prod(shape))
+        mesh = make_mesh(shape, axes, [dev] * k)
+        cpu_mesh = make_mesh(shape, axes, ["cpu"] * k)
+        eng = engine(backend, p, mesh)
+        cpu = engine(backend, p, cpu_mesh)
+        if p not in dense:
+            dense[p] = engine("dense", p, device=dev)
+            dense_lm[p] = landmarks(dense[p])
+            dense_lm[p].build(0)
+        ref = dense[p]
+        devices = [str(d) for d in mesh.device_list]
+        print(f"  {label}: mesh {dict(mesh.shape)} over devices {devices} "
+              f"(one card, {k} positions) [{eng.layout}]")
+        sharded = backend == "dense_sharded"
+        tile = (N_NODES // shape[0], N_NODES // shape[-1]) if sharded else None
+        rows = (N_NODES // shape[0], N_NODES) if sharded else None
+        cols = shape[-1] if sharded else k
+
+        def counted(fn, step, B, W, steps):
+            k2.reset_launches()
+            out = fn()
+            torch.cuda.synchronize()
+            got = dict(k2.batch_launches)
+            n_steps = steps(out) if callable(steps) else steps
+            want = {(p, B): k * n_steps} if sharded else {}
+            check(got == want, f"{label} {step}: K2 launches {got}, want "
+                  f"{want} ({k} shards x {n_steps} iterations)")
+            for (q, b), c in got.items():
+                launches[q, b, W] += c
+            return out
+
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pr = counted(lambda: eng.run(N_ITERS), "run", 1, tile, N_ITERS)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        res = counted(lambda: eng.run_tol(tol=1e-6, max_iters=1000),
+                      "run_tol", 1, tile,
+                      lambda r: issued_sweeps(r.info.iters, 1000, CHUNK))
+        q_pad = -(-len(sets) // cols) * cols
+        X = counted(lambda: eng.ppr(sets, N_ITERS), "ppr", q_pad // cols,
+                    rows, N_ITERS)
+        lm = landmarks(eng)
+        counted(lambda: lm.build(0), "landmark build", N_HUBS // cols, rows,
+                N_ITERS)
+        # against the dense tier at the same storage type
+        ref_pr = ref.run(N_ITERS)
+        ref_tol = ref.run_tol(tol=1e-6, max_iters=1000)
+        errs = {
+            "run_vs_dense": allclose(torch, pr, ref_pr, **TOL_TIER,
+                                     what=f"{label} run vs dense[{p}]"),
+            "run_tol_vs_dense": allclose(torch, res.pr, ref_tol.pr,
+                                         **TOL_TIER, what=f"{label} run_tol "
+                                         f"vs dense[{p}]"),
+            "ppr_vs_dense": allclose(torch, X, ref.ppr(sets, N_ITERS),
+                                     **TOL_TIER, what=f"{label} ppr vs "
+                                     f"dense[{p}]"),
+            "landmark_vs_dense": allclose(
+                torch, torch.from_numpy(lm._Y),
+                torch.from_numpy(dense_lm[p]._Y), **TOL_TIER,
+                what=f"{label} landmark hub columns vs dense[{p}]")}
+        check(np.array_equal(lm.hubs, dense_lm[p].hubs),
+              f"{label}: the landmark index chose other hubs than dense")
+        check(res.info.converged and abs(res.info.iters
+                                         - ref_tol.info.iters) <= 1,
+              f"{label} run_tol: {res.info.status} in {res.info.iters} "
+              f"iterations, dense {ref_tol.info.iters}")
+        top = top_k_proteins(pr, k=10)[0].cpu().numpy()
+        check(np.array_equal(top, top_k_proteins(ref_pr, k=10)[0]
+                             .cpu().numpy()),
+              f"{label}: top-10 {top} differs from dense[{p}]'s")
+        # against the same calls on the CPU mesh
+        cpu_res = cpu.run_tol(tol=1e-6, max_iters=1000)
+        cpu_lm = landmarks(cpu)
+        cpu_lm.build(0)
+        errs.update({
+            "run_vs_cpu": allclose(torch, pr.cpu(), cpu.run(N_ITERS),
+                                   **TOL_TIER, what=f"{label} run vs CPU"),
+            "run_tol_vs_cpu": allclose(torch, res.pr.cpu(), cpu_res.pr,
+                                       **TOL_TIER,
+                                       what=f"{label} run_tol vs CPU"),
+            "ppr_vs_cpu": allclose(torch, X.cpu(), cpu.ppr(sets, N_ITERS),
+                                   **TOL_TIER, what=f"{label} ppr vs CPU"),
+            "landmark_vs_cpu": allclose(
+                torch, torch.from_numpy(lm._Y), torch.from_numpy(cpu_lm._Y),
+                **TOL_TIER, what=f"{label} landmark hub columns vs CPU")})
+        check(abs(res.info.iters - cpu_res.info.iters) <= 1,
+              f"{label} run_tol: {res.info.iters} iterations, CPU mesh "
+              f"{cpu_res.info.iters}")
+        schedule = eng.lower_run()
+        times = {"run": wall_stats(torch, lambda: eng.run(N_ITERS)),
+                 "run_tol": wall_stats(torch, lambda: eng.run_tol(tol=1e-6)),
+                 "ppr": wall_stats(torch, lambda: eng.ppr(sets, N_ITERS)),
+                 "landmark_build": wall_stats(torch, lambda: lm.build(0))}
+        tiers[label] = {"devices": devices, "layout": eng.layout,
+                        "iters": res.info.iters,
+                        "dense_iters": ref_tol.info.iters,
+                        "cpu_iters": cpu_res.info.iters,
+                        "max_abs_diff": errs, "schedule": schedule,
+                        "wall_ms": times,
+                        "phase_s": time.perf_counter() - t_tier}
+        print("    K2 launches per iteration: "
+              + (f"{k} (one per shard) at run B=1, ppr B={q_pad // cols}, "
+                 f"landmark build B={N_HUBS // cols}" if sharded else
+                 "none (the ELL gather is plain PyTorch)")
+              + f"; collectives per iteration {schedule['collectives']}, "
+              f"bytes {schedule['bytes']}")
+        print(f"    run_tol(1e-6) {res.info.iters} iterations (dense "
+              f"{ref_tol.info.iters}, CPU mesh {cpu_res.info.iters}); "
+              "max|diff| " + ", ".join(f"{a} {v:.3e}" for a, v in
+                                       errs.items()))
+        print(f"    wall time on {card} (median of 5 [min, max]): "
+              + ", ".join(f"{a} {v['median_ms']:.3f} ms "
+                          f"[{v['min_ms']:.3f}, {v['max_ms']:.3f}]"
+                          for a, v in times.items()))
+
+    # 16 live ticks of the streaming example's stream on both sharded tiers
+    live = {}
+    for label, backend, shape, axes, p in (SHARDED_TIERS[0],
+                                           SHARDED_TIERS[-1]):
+        mesh = make_mesh(shape, axes, [dev] * int(np.prod(shape)))
+        stream = EdgeStream(N_NODES, **STREAM)
+        cur = stream.base()
+        reg = MetricsRegistry()
+        dyn = DynamicPageRankEngine(cur[0], cur[1], N_NODES, d=DAMPING,
+                                    backend=backend, mesh=mesh, metrics=reg)
+        dyn.run_tol(1e-7, max_iters=1000)
+        qe = PageRankQueryEngine(dyn, n_iters=60, max_batch=4, metrics=reg)
+        rng = np.random.default_rng(SEED)
+        strategies = []
+        k2.reset_launches()
+        for tick, delta in zip(range(SHARDED_LIVE_TICKS), stream):
+            qe.push_update(delta)
+            qs = [qe.submit(tick * 10 + q, rng.choice(N_NODES, size=3,
+                                                      replace=False))
+                  for q in range(4)]
+            qe.flush()
+            info = qe.last_update_info
+            check(info.healthy and all(q.result is not None for q in qs),
+                  f"{label} tick {tick}: {info}")
+            strategies.append(info.strategy)
+            cur = apply_delta(cur[0], cur[1], delta, N_NODES)
+        torch.cuda.synchronize()
+        # the solves launch at B = 1 on the tiles, the flushes' PPR of 4
+        # queries at B = 4 / C on the row blocks
+        for (q, b), c in k2.batch_launches.items():
+            launches[q, b, (N_NODES // shape[0], N_NODES // shape[-1])
+                     if b == 1 else (N_NODES // shape[0], N_NODES)] += c
+        fresh = PageRankEngine(cur[0], cur[1], N_NODES, d=DAMPING,
+                               backend="dense", device=dev,
+                               metrics=NullRegistry()).run(300)
+        l1 = float(torch.sum(torch.abs(dyn.ranks - fresh)))
+        check(l1 <= 1e-5, f"{label} live: L1 vs a fresh solve {l1:.3e}")
+        upd = reg.histogram("span.update")
+        live[label] = {"strategies": strategies, "l1_vs_fresh": l1,
+                       "k2_launches": sum(k2.launches.values()),
+                       "update_p50_ms": upd.quantile(0.5),
+                       "update_p95_ms": upd.quantile(0.95),
+                       "flush_p50_ms": reg.histogram(
+                           "serve.batch_ms").quantile(0.5)}
+        print(f"  {label}: {SHARDED_LIVE_TICKS} live ticks, strategies "
+              f"{dict(Counter(strategies))}, L1 vs a fresh solve {l1:.3e}, "
+              f"update p50 {live[label]['update_p50_ms']:.3f} ms on {card}")
+
+    # K2 flushed at the 2 x 2 tile (2500 x 2500, B = 1) beside torch.mv
+    tile_eng = engine("dense_sharded", "f32", make_mesh(
+        (2, 2), ("row", "col"), [dev] * 4))
+    W = tile_eng.operands[0].shards[0]
+    x = torch.from_numpy(np.random.default_rng(SEED).dirichlet(
+        np.ones(W.shape[1])).astype(np.float32)).to(dev)
+    X1 = x[None, :]
+    y = k2.streaming_matvec(W, X1)
+    torch.cuda.synchronize()
+    err = allclose(torch, y, streaming_matvec_ref(W, X1), **TOL32,
+                   what="K2 at the 2500 x 2500 tile")
+    allclose(torch, y, streaming_matvec_ref(W, X1), **TIGHT,
+             what="K2 at the 2500 x 2500 tile")
+    check(bool(torch.equal(k2.streaming_matvec(W, X1), y)),
+          "K2 at the tile: two calls are not bit-identical")
+    ms = cuda_ms_cold(torch, lambda: k2.streaming_matvec(W, X1), flush)
+    plain_ms = cuda_ms_cold(torch, lambda: streaming_matvec_ref(W, X1),
+                            flush)
+    mv_ms = cuda_ms_cold(torch, lambda: torch.mv(W, x), flush)
+    Np, Mp = W.shape
+    nbytes = W.numel() * W.element_size() + 4 * (Mp + Np)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms, ops_n, scheme = split_bound("f32", Np * Mp)
+    tile_launches = launches["f32", 1, (Np, Mp)]
+    check(tile_launches > 0, "the sharded phase launched K2 at the tile no "
+          "time")
+    print(f"  K2 f32 at the {Np} x {Mp} tile, B=1: {ms * 1e3:.2f} us "
+          f"flushed, bound {max(bytes_ms, ops_ms) * 1e3:.2f} us ({nbytes} "
+          f"bytes at {HBM_BYTES_PER_S / 1e12} TB/s); plain "
+          f"{plain_ms * 1e3:.2f} us, torch.mv {mv_ms * 1e3:.2f} us flushed; "
+          f"{tile_launches} launches in this phase")
+    print("  K2 launches in this phase by (storage, B, W shape): "
+          + ", ".join(f"{q} B={b} {w[0]}x{w[1]}: {c}"
+                      for (q, b, w), c in sorted(launches.items())))
+    row = {"name": f"streaming_matvec[f32,B=1,tile {Np}x{Mp}]",
+           "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+           "launches": tile_launches, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": mv_ms, "library_call": "torch.mv",
+           "shape": [Np, Mp], "batch": 1, "bytes": nbytes,
+           "operations": ops_n, "ops_scheme": scheme}
+    return {"tiers": tiers, "live": live, "k2_row": row,
+            "k2_launches": {f"{q},B={b},{w[0]}x{w[1]}": c
+                            for (q, b, w), c in launches.items()}}
 
 
 def fabric_phase(np, torch, dev, src, dst, card) -> dict:
@@ -1772,6 +2058,18 @@ def main() -> int:
     fabric_stats["phase_s"] = time.perf_counter() - t_fab
     print(f"  fabric phase took {fabric_stats['phase_s']:.2f} s")
 
+    # --------------------------------------------------------------- 3h --
+    print(f"sharded mesh tiers: protein_network({N_NODES}), {N_ITERS} "
+          f"iterations, d={DAMPING}, every mesh position on the one card; "
+          "K2 launch counts zeroed before and read after each step")
+    t_shard = time.perf_counter()
+    flush_3h = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    sharded_stats = sharded_phase(np, torch, dev, src, dst, sets8, card,
+                                  flush_3h)
+    del flush_3h
+    sharded_stats["phase_s"] = time.perf_counter() - t_shard
+    print(f"  sharded phase took {sharded_stats['phase_s']:.2f} s")
+
     # ---------------------------------------------------------------- 4 --
     print(f"times on {card} (CUDA events, medians of CUDA-graph replays; "
           "'flushed': one call after a 256 MiB write evicts the L2, "
@@ -2030,6 +2328,7 @@ def main() -> int:
               f"{rows[-1]['spill_stores']} / {rows[-1]['spill_loads']} bytes "
               "spilled (stores / loads)")
     del flush
+    rows.append(sharded_stats["k2_row"])
 
     tiers = {"dense": dense, "ell": ell, "fused_dense": fused}
     tiers.update({f"fused_dense[{p}]": engines[p] for p in PRECISIONS[1:]})
@@ -2125,6 +2424,8 @@ def main() -> int:
                       "live": live, "k3_serve_paths": e2e,
                       "resilient": resilient_stats,
                       "fabric": fabric_stats,
+                      "sharded": {k: v for k, v in sharded_stats.items()
+                                  if k != "k2_row"},
                       "k2_launches_by_step": {
                           step: {f"{p},B={b}": n for (p, b), n in c.items()}
                           for step, c in k2_steps.items()},

@@ -106,10 +106,11 @@ def bsr_spmv(blocks: torch.Tensor, block_cols: torch.Tensor,
     lib = _library()
     code, name = _DTYPES[blocks.dtype]
     Y = torch.empty((B, nb_r * bs), dtype=torch.float32, device=dev)
-    err = lib.bsr_spmv_launch(
-        code, blocks.data_ptr(), block_cols.data_ptr(), X.data_ptr(),
-        Y.data_ptr(), nb_r, mb, bs, X.shape[1], B,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):          # launch on the tensors' card
+        err = lib.bsr_spmv_launch(
+            code, blocks.data_ptr(), block_cols.data_ptr(), X.data_ptr(),
+            Y.data_ptr(), nb_r, mb, bs, X.shape[1], B,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise KernelLaunchError(
             f"bsr_spmv launch failed: cudaError_t {err}")

@@ -135,11 +135,12 @@ def pagerank_step_fused(Hp: torch.Tensor, xp: torch.Tensor,
     partials = torch.empty((Np // ROWS_PER_CTA,), dtype=torch.float32,
                            device=dev)
     leak = torch.empty((), dtype=torch.float32, device=dev)
-    err = lib.pagerank_step_fused_launch(
-        code, Hp.data_ptr(), xp.data_ptr(), dangp.data_ptr(), t.data_ptr(),
-        None if scales is None else scales.data_ptr(), yp.data_ptr(),
-        partials.data_ptr(), leak.data_ptr(), Np, Mp, float(d),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):          # launch on the tensors' card
+        err = lib.pagerank_step_fused_launch(
+            code, Hp.data_ptr(), xp.data_ptr(), dangp.data_ptr(),
+            t.data_ptr(), None if scales is None else scales.data_ptr(),
+            yp.data_ptr(), partials.data_ptr(), leak.data_ptr(), Np, Mp,
+            float(d), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise KernelLaunchError(
             f"pagerank_step_fused launch failed: cudaError_t {err}")
@@ -185,9 +186,10 @@ def pagerank_step(H: torch.Tensor, pr: torch.Tensor, t, *,
     lib = _library()
     code, name = _DTYPES[H.dtype]
     y = torch.empty((N,), dtype=torch.float32, device=dev)
-    err = lib.pagerank_step_launch(
-        code, H.data_ptr(), pr.data_ptr(), t.data_ptr(), y.data_ptr(), N, M,
-        float(d), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):          # launch on the tensors' card
+        err = lib.pagerank_step_launch(
+            code, H.data_ptr(), pr.data_ptr(), t.data_ptr(), y.data_ptr(),
+            N, M, float(d), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise KernelLaunchError(
             f"pagerank_step launch failed: cudaError_t {err}")

@@ -101,9 +101,12 @@ def streaming_matvec(W: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     lib = _library()
     code, name = _DTYPES[W.dtype]
     Y = torch.empty((B, N), dtype=torch.float32, device=dev)
-    err = lib.streaming_matvec_launch(
-        code, W.data_ptr(), X.data_ptr(), Y.data_ptr(), N, M, B,
-        torch.cuda.current_stream(dev).cuda_stream)
+    # the runtime launches on the current device: make it the tensors'
+    # (the shards of a mesh may lie on several cards)
+    with torch.cuda.device(dev):
+        err = lib.streaming_matvec_launch(
+            code, W.data_ptr(), X.data_ptr(), Y.data_ptr(), N, M, B,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise KernelLaunchError(
             f"streaming_matvec launch failed: cudaError_t {err}")

@@ -5,16 +5,21 @@ Every tier goes through :class:`~repro_torch.pagerank.engine
 .PageRankEngine` (layout prepared once): the dense reference tier and the
 tiers named by ``--backend`` (by default the split-ELL tier and the
 fused-kernel tier; ``bsr`` is the block-sparse tier on its kernel), the
-fused and ``bsr`` tiers at the chosen storage precision.  Prints each
-tier's max|diff| against dense, its ``run`` wall time, and the top-k
-proteins; a float32 tier that disagrees with dense fails the run.  Last
-comes the paper's model of its own fabric (``paper_fabric_model``, from
-:mod:`repro_torch.core.timing`), printed apart from the card's times.
+fused and ``bsr`` tiers at the chosen storage precision.  The sharded mesh
+tiers (``dense_sharded``, ``ell_sharded``) run when the mesh has more than
+one shard: over every visible card, or ``--shards K`` positions all on the
+chosen device (as the JAX launcher's virtual devices do); with one device
+they are skipped.  Prints each tier's max|diff| against dense, its ``run``
+wall time, and the top-k proteins; a float32 tier that disagrees with
+dense fails the run.  Last comes the paper's model of its own fabric
+(``paper_fabric_model``, from :mod:`repro_torch.core.timing`), printed
+apart from the card's times.
 
 Usage (on the card; ``--device cpu`` runs the plain versions on the CPU):
     python -m repro_torch.launch.pagerank_run --nodes 5000 --iters 100
     python -m repro_torch.launch.pagerank_run --precision bf16
     python -m repro_torch.launch.pagerank_run --backend bsr
+    python -m repro_torch.launch.pagerank_run --shards 4
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from repro_torch.graph import generators as gen
 from repro_torch.graph import transition as tr
 from repro_torch.kernels.common import resolve_device
 from repro_torch.pagerank import PageRankEngine
+from repro_torch.pagerank.engine import SHARDED_BACKENDS, default_mesh
 from repro_torch.pagerank.precision import PRECISIONS
 from repro_torch.pagerank.sparse import top_k_proteins
 
@@ -65,6 +71,9 @@ def run(argv=None):
                     "ell and fused_dense)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="run the sharded tiers on this many mesh positions, "
+                    "all on --device (default: one per visible card)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -91,6 +100,23 @@ def run(argv=None):
         print(f"  engine[{eng.layout}] vs dense: max|diff|={err:.2e}")
         if precision == "f32":
             torch.testing.assert_close(pr_dense, pr, rtol=1e-3, atol=1e-7)
+
+    # sharded mesh tiers: the same front door, any device topology
+    n_dev = (args.shards if args.shards is not None
+             else torch.cuda.device_count() if device.type == "cuda" else 1)
+    if n_dev > 1:
+        for backend in SHARDED_BACKENDS:
+            mesh = default_mesh(backend, device, args.shards)
+            eng = PageRankEngine(src, dst, n, d=d, backend=backend,
+                                 mesh=mesh)
+            results[f"engine_{backend}"], pr = _time_engine(eng, iters)
+            err = float(torch.max(torch.abs(pr - pr_dense)))
+            print(f"  engine[{eng.layout}] vs dense: max|diff|={err:.2e} "
+                  f"(mesh devices {[str(v) for v in mesh.device_list]})")
+            torch.testing.assert_close(pr_dense, pr, rtol=1e-3, atol=1e-7)
+    else:
+        print("  (single device: sharded tiers skipped — pass --shards 8 to "
+              "exercise them)")
 
     idx, scores = top_k_proteins(pr_dense, k=args.top_k)
     print(f"\ntop-{args.top_k} proteins: "

@@ -89,10 +89,12 @@ class SolveTrace:
 
 
 def _where(mask: torch.Tensor, new, old):
-    """``torch.where`` over a state that is a tensor or a tuple of them."""
+    """``torch.where`` over a state that is a tensor or a tuple of them;
+    the mask follows each tensor to its device (a sharded state's shards
+    may lie on several)."""
     if isinstance(new, tuple):
         return tuple(_where(mask, a, b) for a, b in zip(new, old))
-    return torch.where(mask, new, old)
+    return torch.where(mask.to(new.device), new, old)
 
 
 def instrumented_tol_loop(step, state0, *, tol, max_iters: int,
@@ -104,7 +106,8 @@ def instrumented_tol_loop(step, state0, *, tol, max_iters: int,
 
     ``step(state) -> (new_state, residual)`` supplies the backend's
     arithmetic; ``state`` is a tensor or a tuple of tensors (the rank
-    vector, the fused tier's ``(xp, t)`` carry), all on one device.
+    vector, the fused tier's ``(xp, t)`` carry, a sharded tier's shards);
+    the loop's own scalars live on the first tensor's device.
     ``res0`` seeds the loop residual (default ``inf``: always take the
     first step); a tensor ``res0`` stays on the device, so seeding the loop
     costs no host sync.  ``tol`` is a Python float or a 0-dim tensor.

@@ -17,9 +17,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.fabric_matvec import P, ShardedTensor
 from repro_torch.graph.sparse import BSRMatrix
 from repro_torch.kernels.common import resolve_device
-from repro_torch.pagerank.engine import BACKENDS
+from repro_torch.launch.mesh import Mesh
+from repro_torch.pagerank.engine import BACKENDS, SHARDED_BACKENDS
 from repro_torch.pagerank.precision import STORAGE_DTYPES, resolve_precision
 
 __all__ = ["layout_from_numpy"]
@@ -28,9 +30,13 @@ __all__ = ["layout_from_numpy"]
 # backend's operand tuple; the other positions are int32 indices, the
 # dangling mask, or the float32 int8 scales
 _VALUE_SLOTS = {"dense": (0,), "ell": (0, 4), "bsr": (0,),
-                "fused_dense": (0,)}
+                "fused_dense": (0,), "dense_sharded": (0,),
+                "ell_sharded": (0,)}
 _N_OPERANDS = {"dense": (1, 2), "ell": (5, 6), "bsr": (2, 3),
-               "fused_dense": (2, 2)}
+               "fused_dense": (2, 2), "dense_sharded": (1, 1),
+               "ell_sharded": (2, 2)}
+# the sharded tiers take their int8 scales separately, as the fused tier
+_SEPARATE_SCALES = ("fused_dense", "dense_sharded", "ell_sharded")
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -43,22 +49,29 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 
 
 def layout_from_numpy(backend: str, arrays: dict, *, precision: str,
-                      device: str | torch.device | None = None) -> dict:
+                      device: str | torch.device | None = None,
+                      mesh: Mesh | None = None) -> dict:
     """``arrays`` holds ``operands`` (the operand tuple of ``backend``),
-    ``scales`` (the fused tier's (1, Np) int8 scales, or ``None``) and
-    ``dang`` (the (n,) dangling mask), and optionally the host edge
-    bookkeeping ``keys`` (sorted src*n+dst), ``outdeg`` and ``indeg``.
-    Returns the first three as tensors on ``device``, value arrays in the
-    precision's storage dtype, and the bookkeeping as int64 numpy arrays
-    (``None`` where not given).  int8 layouts of ``dense`` and ``ell``
-    carry their scales as the last operand, as in the JAX package.  For
-    ``bsr`` the operands are the container's arrays in its pytree order
-    (``blocks``, ``block_cols``, and ``row_scales`` for int8), and the
-    returned operands hold one :class:`BSRMatrix`."""
+    ``scales`` (the fused and sharded tiers' int8 scales, or ``None``) and
+    ``dang`` (the (n,) dangling mask, padded on the sharded tiers), and
+    optionally the host edge bookkeeping ``keys`` (sorted src*n+dst),
+    ``outdeg`` and ``indeg``.  Returns the first three as tensors on
+    ``device``, value arrays in the precision's storage dtype, and the
+    bookkeeping as int64 numpy arrays (``None`` where not given).  int8
+    layouts of ``dense`` and ``ell`` carry their scales as the last
+    operand, as in the JAX package.  For ``bsr`` the operands are the
+    container's arrays in its pytree order (``blocks``, ``block_cols``, and
+    ``row_scales`` for int8), and the returned operands hold one
+    :class:`BSRMatrix`.  The sharded tiers take the global arrays (what
+    ``np.asarray`` gives of a JAX sharded array) and a ``mesh``, and cut
+    them over it in the engine's layouts; the result carries the mesh."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     precision = resolve_precision(precision)
-    dev = resolve_device(device)
+    sharded = backend in SHARDED_BACKENDS
+    if sharded and mesh is None:
+        raise ValueError(f"{backend} needs a mesh")
+    dev = mesh.device_list[0] if sharded else resolve_device(device)
     ops = tuple(arrays["operands"])
     lo, hi = _N_OPERANDS[backend]
     want = hi if precision == "int8" else lo
@@ -72,10 +85,20 @@ def layout_from_numpy(backend: str, arrays: dict, *, precision: str,
             raise ValueError(f"operand {slot} is {tensors[slot].dtype}, "
                              f"{precision} stores {storage}")
     scales = arrays.get("scales")
-    if backend == "fused_dense" and (scales is not None) != (
+    if backend in _SEPARATE_SCALES and (scales is not None) != (
             precision == "int8"):
-        raise ValueError("the fused tier takes scales exactly for int8")
+        raise ValueError(f"{backend} takes scales exactly for int8")
+    scales = None if scales is None else _tensor(scales, dev)
     dang = _tensor(arrays["dang"], dev).to(torch.float32)
+    if sharded:
+        axes = tuple(mesh.axis_names)
+        spec = P(*axes) if backend == "dense_sharded" else P(axes)
+        tensors = tuple(ShardedTensor.from_global(t, mesh, spec)
+                        for t in tensors)
+        dang = ShardedTensor.from_global(dang, mesh, P())
+        if scales is not None:
+            scales = ShardedTensor.from_global(
+                scales, mesh, P() if backend == "dense_sharded" else spec)
     if backend == "bsr":
         n = dang.shape[0]
         tensors = (BSRMatrix(tensors[0], tensors[1], shape=(n, n),
@@ -84,6 +107,5 @@ def layout_from_numpy(backend: str, arrays: dict, *, precision: str,
     book = {k: None if arrays.get(k) is None
             else np.array(arrays[k], np.int64, copy=True)
             for k in ("keys", "outdeg", "indeg")}
-    return {"operands": tensors,
-            "scales": None if scales is None else _tensor(scales, dev),
-            "dang": dang, **book}
+    return {"operands": tensors, "scales": scales, "dang": dang,
+            "mesh": mesh if sharded else None, **book}

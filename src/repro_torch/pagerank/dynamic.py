@@ -39,12 +39,23 @@ Layout patches, one per tier:
   row-major block order, addresses every changed entry as ``blocks[br,
   slot, r % bs, c % bs]``.  Deletes zero entries in place; only an insert
   that needs a new block escalates to a rebuild.
+* **ell_sharded** — the full-K row layout is built with ``maxdeg + slack``
+  columns of headroom, and every affected row is rewritten in the shard
+  that owns it; the replicated dangling mask is patched on every position
+  and the PPR copy of the layout is dropped (placed again at first use).
+* **dense_sharded** — each changed column is written into the shards of
+  its mesh column (the padded tail stays zero), the dangling mask beside
+  it, and the row-block PPR copy is dropped.
+
+The push runs shard-local on the sharded tiers
+(:func:`repro_torch.pagerank.distributed.push_distributed_tol` /
+``push_distributed_sparse_tol``), on the same chunked tolerance loop; the
+auto policy picks the same strategies sharded as on one device.
 
 Each patch writes into a copy of the array it changes (as the JAX
 package's functional scatters do), never into the array the engine holds:
 an update that fails part way restores the engine's attributes and so its
-whole state (the all-or-nothing rollback).  The sharded tiers are not
-ported.
+whole state (the all-or-nothing rollback).
 """
 from __future__ import annotations
 
@@ -54,10 +65,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.fabric_matvec import ShardedTensor
 from repro_torch.graph import transition as tr
 from repro_torch.graph.delta import GraphDelta, edge_keys
 from repro_torch.kernels.streaming_matvec import streaming_matvec
 from repro_torch.obs.trace import SolveTrace, instrumented_tol_loop
+from repro_torch.pagerank import distributed as dist
 from repro_torch.pagerank.engine import (PageRankEngine, _dedupe_edges,
                                          _matvec)
 from repro_torch.pagerank.landmarks import _key_slice
@@ -66,9 +79,11 @@ from repro_torch.pagerank.resilience import EngineSnapshot, make_solve_info
 
 __all__ = ["DynamicPageRankEngine", "UpdateInfo", "PATCHABLE_BACKENDS"]
 
-# every single-device tier patches in place; capacity overflow still
-# escalates to rebuild, and int8 always rebuilds (coerced_from records it)
-PATCHABLE_BACKENDS = ("dense", "ell", "fused_dense", "bsr")
+# every tier patches in place (the sharded ones in the shards that own the
+# change); capacity overflow still escalates to rebuild, and int8 always
+# rebuilds (coerced_from records it)
+PATCHABLE_BACKENDS = ("dense", "ell", "fused_dense", "bsr", "dense_sharded",
+                      "ell_sharded")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +111,39 @@ class UpdateInfo:
         """The refresh solve's rank vector is trustworthy (no watchdog
         abort)."""
         return not (self.diverged or self.nonfinite)
+
+
+def _write_index(st: ShardedTensor, dim: int, index: np.ndarray,
+                 values: np.ndarray) -> ShardedTensor:
+    """A copy of ``st`` with ``st[..., index, ...] = values`` along
+    ``dim`` (``values`` holds the global extent of the other dims): each
+    shard holding some of ``index`` is copied and written on its device,
+    the others are kept as they are."""
+    index = np.asarray(index, np.int64)
+    vals = torch.from_numpy(np.ascontiguousarray(values))
+    shards, done = [], {}
+    for p, (t, dev) in enumerate(zip(st.shards, st.mesh.device_list)):
+        key = (dev, id(t))
+        if key not in done:
+            rng = st.ranges(p)
+            lo, hi = rng[dim]
+            sel = np.flatnonzero((index >= lo) & (index < hi))
+            if len(sel) == 0:
+                done[key] = t
+            else:
+                v = vals.index_select(dim, torch.from_numpy(sel))
+                if v.dim() == 2:
+                    a, b = rng[1 - dim]
+                    v = v.narrow(1 - dim, a, b - a)
+                local = torch.from_numpy(index[sel] - lo).to(dev)
+                new = t.clone()
+                if dim == 0:
+                    new[local] = v.to(device=dev, dtype=t.dtype)
+                else:
+                    new[:, local] = v.to(device=dev, dtype=t.dtype)
+                done[key] = new
+        shards.append(done[key])
+    return ShardedTensor(st.mesh, st.spec, st.shape, shards)
 
 
 def _in_sorted(sorted_keys: np.ndarray, vals: np.ndarray) -> np.ndarray:
@@ -214,6 +262,15 @@ class DynamicPageRankEngine(PageRankEngine):
 
     # --------------------------- layout prep --------------------------- #
     def _prepare_layout(self, src: np.ndarray, dst: np.ndarray) -> None:
+        if self.backend == "ell_sharded":
+            # patch headroom: the engine takes ``_ell_k`` as a minimum row
+            # capacity, so maxdeg + slack keeps every shape fixed across
+            # small deltas; a row outgrowing it escalates to a rebuild
+            indeg = np.bincount(np.asarray(dst, np.int64), minlength=self.n)
+            maxdeg = int(indeg.max()) if len(indeg) else 0
+            self._ell_k = maxdeg + max(4, self._slack)
+            super()._prepare_layout(src, dst)
+            return
         if self.backend == "bsr":
             super()._prepare_layout(src, dst)
             self._bsr_index(src, dst)
@@ -498,16 +555,19 @@ class DynamicPageRankEngine(PageRankEngine):
         rows = np.empty(0, np.int64)
         overflow = False
         extra: dict = {}
-        if self.backend == "ell":
-            # only the row-major SELL layout patches rows (dense tiers
-            # rewrite whole columns, BSR individual block entries)
+        if self.backend in ("ell", "ell_sharded"):
+            # only the row-major layouts patch rows (dense tiers rewrite
+            # whole columns, BSR individual block entries)
             parts = [changed % n]
             for u in cols:
                 parts.append(_key_slice(self._keys, int(u), n))
                 parts.append(_key_slice(new_keys, int(u), n))
             rows = np.unique(np.concatenate(parts))
-            k_low, k_high = self._sell_k
-            cap = np.where(self._sell_high[rows], k_high, k_low)
+            if self.backend == "ell":
+                k_low, k_high = self._sell_k
+                cap = np.where(self._sell_high[rows], k_high, k_low)
+            else:           # full-K sharded rows: one capacity for all
+                cap = self._operands[0].shape[1]
             overflow = bool((indeg[rows] > cap).any())
         elif self.backend == "bsr":
             # per changed column its old and new out-neighbor sets; only
@@ -567,6 +627,8 @@ class DynamicPageRankEngine(PageRankEngine):
         arrays.  Returns ``(rows_patched, cols_patched)``."""
         n = self.n
         cols = plan["cols"]
+        if self.mesh is not None:
+            return self._patch_sharded(plan)
         ci = self._put(cols)
         flags = self._put((self._outdeg[cols] == 0).astype(np.float32))
         dang = self._dang.clone()
@@ -603,6 +665,27 @@ class DynamicPageRankEngine(PageRankEngine):
             data_op[pos] = self._put(data).to(data_op.dtype)
             idx_op[pos] = self._put(idx)
         self._operands = (dl, il, dh, ih, inv)
+        return len(rows), len(cols)
+
+    def _patch_sharded(self, plan: dict) -> tuple[int, int]:
+        """The sharded tiers' patches, written into copies of the shards
+        that hold the change; the PPR copy of the layout goes stale and is
+        dropped."""
+        cols = plan["cols"]
+        self._dang = _write_index(
+            self._dang, 0, cols, (self._outdeg[cols] == 0).astype(np.float32))
+        self._ppr_operands = self._ppr_scales = None
+        if self.backend == "dense_sharded":
+            mat = np.zeros((self._n_pad, len(cols)), np.float32)
+            mat[:self.n] = np.stack([self._column(int(u), False)
+                                     for u in cols], axis=1)
+            self._operands = (_write_index(self._operands[0], 1, cols, mat),)
+            return 0, len(cols)
+        rows = plan["rows"]
+        data_op, idx_op = self._operands
+        data, idx = self._rebuild_rows(rows, int(data_op.shape[1]))
+        self._operands = (_write_index(data_op, 0, rows, data),
+                          _write_index(idx_op, 0, rows, idx))
         return len(rows), len(cols)
 
     def _patch_bsr(self, plan: dict) -> None:
@@ -662,6 +745,20 @@ class DynamicPageRankEngine(PageRankEngine):
     # ------------------------------ push -------------------------------- #
     def _push(self, x0: torch.Tensor, tol: float, max_pushes: int,
               trace: bool = True):
+        if self.mesh is not None:
+            kw = dict(tol=float(np.float32(tol)), max_pushes=max_pushes,
+                      d=self.d,
+                      dangling=self._dang, n_true=self.n, trace=trace,
+                      scales=self._scales)
+            x0 = self._pad_x0(x0)
+            if self.backend == "dense_sharded":
+                out = dist.push_distributed_tol(
+                    self._operands[0], self.mesh, x0, row_axis=self._axes[0],
+                    col_axis=self._axes[1], **kw)
+            else:
+                out = dist.push_distributed_sparse_tol(
+                    *self._operands, self.mesh, x0, axes=self._axes, **kw)
+            return (out[0].full()[:self.n], *out[1:])
         tol_t = torch.tensor(tol, dtype=torch.float32).to(self.device)
         if self.backend == "fused_dense":
             Hp, dangp = self._operands

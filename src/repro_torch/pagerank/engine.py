@@ -21,18 +21,29 @@ single-device tiers:
   the hand-written streaming kernel
   (:func:`repro_torch.kernels.streaming_matvec.streaming_matvec`).  It
   stands for the JAX ``pallas_dense`` tier.
-* ``"auto"``        — :func:`select_backend` by density and device.
+* ``"dense_sharded"`` — dangling-unfixed dense H blocked ``P(row, col)``
+  over a 2-D :class:`~repro_torch.launch.mesh.Mesh`, iterated with the
+  paper's fabric schedule (:mod:`repro_torch.pagerank.distributed`): one
+  K2 launch per shard per iteration, one horizontal-bus psum and one
+  re-injection; explicit scalar leak.
+* ``"ell_sharded"`` — full-K ELL rows sharded over the flattened mesh,
+  rank vector replicated, one all_gather per iteration.
+* ``"auto"``        — :func:`select_backend` by density and device
+  topology (more than one device picks a sharded tier).
 
 Every tier supports the four storage precisions (f32, bf16, f16, int8 with
 per-row scales); the solve itself is float32.  ``run`` issues its
 iterations with no host sync; ``run_tol`` syncs once per
 :data:`repro_torch.obs.trace.CHUNK` steps (see :mod:`repro_torch.obs.trace`).
-Duplicate directed edges are collapsed up front so every tier sees the same
-graph; self-loops stay.  The engine runs on the card unless ``device``
-asks for the CPU.
+The sharded tiers zero-pad N (and the PPR query axis) to what the mesh
+divides; pad entries never feed back into real ranks and results are
+sliced back to N.  Duplicate directed edges are collapsed up front so every
+tier sees the same graph; self-loops stay.  The engine runs on the card
+unless ``device`` (or the mesh) asks for the CPU.
 """
 from __future__ import annotations
 
+import math
 import warnings
 from typing import Sequence
 
@@ -40,14 +51,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import fabric_matvec as fm
+from repro_torch.core.fabric_matvec import P, ShardedTensor
 from repro_torch.graph import delta as delta_mod
 from repro_torch.graph import transition as tr
-from repro_torch.graph.sparse import BSRMatrix
+from repro_torch.graph.sparse import BSRMatrix, ELLMatrix
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.common import resolve_device, upcast_f32
 from repro_torch.kernels.pagerank_step import (pad_pagerank_operands,
                                                pagerank_step_fused)
 from repro_torch.kernels.streaming_matvec import streaming_matvec
+from repro_torch.launch.mesh import Mesh, make_mesh
+from repro_torch.pagerank import distributed as dist
 from repro_torch.obs.registry import default_registry
 from repro_torch.obs.trace import SolveTrace, instrumented_tol_loop
 from repro_torch.pagerank.dense import pagerank_dense, pagerank_dense_fixed
@@ -60,34 +75,77 @@ from repro_torch.pagerank.resilience import (ConvergenceError, SolveResult,
 from repro_torch.pagerank.steps import (ppr_step_batched, seed_matrix,
                                         sparse_step)
 
-__all__ = ["PageRankEngine", "select_backend", "BACKENDS", "PRECISIONS"]
+__all__ = ["PageRankEngine", "select_backend", "default_mesh", "BACKENDS",
+           "SHARDED_BACKENDS", "PRECISIONS"]
 
-BACKENDS = ("dense", "ell", "bsr", "fused_dense")
+BACKENDS = ("dense", "ell", "bsr", "fused_dense", "dense_sharded",
+            "ell_sharded")
+SHARDED_BACKENDS = ("dense_sharded", "ell_sharded")
 
-# auto-selection thresholds on nnz / n^2, as in the JAX package; on CUDA
-# they still wait for a measurement on the card
+# auto-selection thresholds on nnz / n^2 (the CPU and every multi-device
+# mesh keep the JAX package's), and the single-card CUDA branch, set from
+# scripts/backend_sweep.py's run(100) table on NVIDIA H100 80GB HBM3,
+# 700.00 W (PERF.md): the dense tier (cuBLAS) wins at every swept density
+# up to N = 5000, where every tier is bound by its launches; at N = 10000
+# ell wins at densities up to 0.05 and dense from 0.2.  bsr and
+# fused_dense win no cell.
 DENSE_DENSITY = 0.25    # at/above: blocked-dense sweeps beat index chasing
+CUDA_DENSE_DENSITY = 0.2
+CUDA_DENSE_MAX_N = 5000
 
 
 def select_backend(n: int, density: float,
                    device: str | torch.device | None = None,
+                   n_devices: int | None = None,
                    precision: str = "auto") -> str:
-    """Pick an execution backend from graph density and the device.
+    """Pick an execution backend from graph density and the device
+    topology.
 
-    ``device`` defaults to ``"cuda"``.  Dense graphs take the fused kernel
-    on CUDA and the ``dense`` tier elsewhere; everything else takes
-    ``ell``.  The JAX package picks its ``bsr`` tier on a TPU for very
-    sparse graphs; the port has that tier (``backend="bsr"``), but on CUDA
-    the auto policy keeps ``ell`` until a density sweep on the card sets
-    the thresholds.  ``precision`` is validated but never alters the
-    choice: reduced precision is an explicit accuracy trade, never an
-    auto-policy pick.
+    ``device`` defaults to ``"cuda"``; ``n_devices`` defaults to
+    ``torch.cuda.device_count()`` on CUDA, and the CPU counts as one device
+    unless the caller says otherwise.  More than one device picks a
+    sharded tier (``dense_sharded`` at ``DENSE_DENSITY`` and above, else
+    ``ell_sharded``), as in the JAX package.  On one CPU, dense graphs take
+    the ``dense`` tier and the rest ``ell``, as in the JAX package.  On one
+    card the ``dense`` tier takes graphs of at most ``CUDA_DENSE_MAX_N``
+    nodes and denser ones from ``CUDA_DENSE_DENSITY``, ``ell`` the rest
+    (``scripts/backend_sweep.py``).  ``precision`` is validated but never
+    alters the choice: reduced precision is an explicit accuracy trade,
+    never an auto-policy pick.
     """
     resolve_precision(precision)
     kind = torch.device("cuda" if device is None else device).type
-    if density >= DENSE_DENSITY:
-        return "fused_dense" if kind == "cuda" else "dense"
-    return "ell"
+    if n_devices is None:
+        n_devices = torch.cuda.device_count() if kind == "cuda" else 1
+    if n_devices > 1:
+        return ("dense_sharded" if density >= DENSE_DENSITY
+                else "ell_sharded")
+    if kind == "cuda":
+        return ("dense" if n <= CUDA_DENSE_MAX_N
+                or density >= CUDA_DENSE_DENSITY else "ell")
+    return "dense" if density >= DENSE_DENSITY else "ell"
+
+
+def default_mesh(backend: str, device: str | torch.device,
+                 shards: int | None = None) -> Mesh:
+    """The mesh a sharded tier takes by default: every visible device of
+    ``device``'s kind (the CPU being one), or ``shards`` positions all on
+    ``device``; a near-square 2-D (row, col) mesh for the dense fabric
+    schedule, a flat 1-D mesh for the row-sharded ELL tier."""
+    device = resolve_device(device)
+    if shards is not None:
+        devices = [device] * int(shards)
+    elif device.type == "cuda":
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    else:
+        devices = [device]
+    ndev = len(devices)
+    if backend == "ell_sharded":
+        return make_mesh((ndev,), ("shard",), devices)
+    r = int(math.isqrt(ndev))
+    while ndev % r:
+        r -= 1
+    return make_mesh((r, ndev // r), ("row", "col"), devices)
 
 
 def _dedupe_edges(src: np.ndarray, dst: np.ndarray,
@@ -283,23 +341,39 @@ def _run_tol_fused(Hp, dangp, tol, x0, scales, *, n: int, max_iters: int,
     return xp[0, :n], iters, res, grow, ring
 
 
+def _engine_device(device, mesh: Mesh | None) -> torch.device:
+    """The engine's device: the mesh's first device when a mesh is given
+    (``device``, if also given, must name it), else ``device`` resolved."""
+    if mesh is None:
+        return resolve_device(device)
+    first = mesh.device_list[0]
+    if device is not None and resolve_device(device) != first:
+        raise ValueError(f"device {device!r} is not the mesh's first "
+                         f"device {first}")
+    return first
+
+
 class PageRankEngine:
     """Prepared PageRank over one graph.
 
     Build it once per graph from the COO edge list, then call ``run`` /
     ``run_tol``.  ``device`` defaults to ``"cuda"`` and raises when CUDA is
     absent; pass ``device="cpu"`` to run on the CPU, where the fused tier
-    takes its kernel's plain version.  :meth:`from_layout` builds an engine
-    around operands prepared elsewhere (e.g. by the JAX package, through
+    takes its kernel's plain version.  The sharded tiers run on ``mesh``
+    (default: every visible device of ``device``'s kind, the CPU being
+    one); results come back on the mesh's first device.
+    :meth:`from_layout` builds an engine around operands prepared
+    elsewhere (e.g. by the JAX package, through
     :func:`repro_torch.pagerank.convert.layout_from_numpy`).
     """
 
     def __init__(self, src: np.ndarray, dst: np.ndarray, n: int, *,
                  d: float = 0.85, backend: str = "auto",
                  bsr_block_size: int = 128, ell_k: int | None = None,
-                 device: str | torch.device | None = None, metrics=None,
+                 device: str | torch.device | None = None,
+                 mesh: Mesh | None = None, metrics=None,
                  precision: str = "auto"):
-        dev = resolve_device(device)
+        dev = _engine_device(device, mesh)
         n = int(n)
         src, dst = _dedupe_edges(np.asarray(src), np.asarray(dst), n)
         self.n_edges = int(len(src))
@@ -311,15 +385,17 @@ class PageRankEngine:
         self._outdeg = np.bincount(src, minlength=n).astype(np.int64)
         self._indeg = np.bincount(dst, minlength=n).astype(np.int64)
         if backend == "auto":
-            backend = select_backend(n, self.density, device=dev)
-        self._init_common(n, d, backend, precision, dev, metrics)
+            backend = select_backend(
+                n, self.density, device=dev,
+                n_devices=None if mesh is None else mesh.size)
+        self._init_common(n, d, backend, precision, dev, metrics, mesh)
         self._ell_k = ell_k
         self._bsr_block_size = int(bsr_block_size)
         with self.metrics.span("prepare", backend=self.backend):
             self._prepare_layout(src, dst)
 
-    def _init_common(self, n, d, backend, precision, device,
-                     metrics) -> None:
+    def _init_common(self, n, d, backend, precision, device, metrics,
+                     mesh=None) -> None:
         if backend not in BACKENDS:
             raise ValueError(
                 f"backend {backend!r} not in {BACKENDS + ('auto',)}")
@@ -331,6 +407,23 @@ class PageRankEngine:
         self.storage_dtype = STORAGE_DTYPES[self.precision]
         self._scales = None
         self.layout = backend
+        # the sharded tiers' mesh, axes and padded N; the replicated (ell)
+        # or row-block (dense) PPR copy of the layout, placed at first use
+        self.mesh = None
+        self._axes: tuple[str, ...] = ()
+        self._n_pad = self.n
+        self._ppr_operands: tuple | None = None
+        self._ppr_scales = None
+        if backend in SHARDED_BACKENDS:
+            self.mesh = (mesh if mesh is not None
+                         else default_mesh(backend, device))
+            self._axes = tuple(self.mesh.axis_names)
+            if backend == "dense_sharded" and len(self._axes) != 2:
+                raise ValueError("dense_sharded needs a 2-D mesh, got axes "
+                                 f"{self._axes}")
+            shards = (math.lcm(*self.mesh.shape.values())
+                      if backend == "dense_sharded" else self.mesh.size)
+            self._n_pad = -(-self.n // shards) * shards
         # the layout tag the runners dispatch _matvec on: the backend
         # itself, except the dynamic engine's patchable SELL tier ("sell"
         # while backend == "ell")
@@ -353,15 +446,24 @@ class PageRankEngine:
         ``keys``, ``outdeg``, ``indeg`` that the landmark index reads, or
         ``None`` where the layout came without it)."""
         eng = cls.__new__(cls)
-        dev = resolve_device(device)
-        eng._init_common(n, d, backend, precision, dev, metrics)
+        mesh = layout.get("mesh")
+        dev = _engine_device(device, mesh)
+        eng._init_common(n, d, backend, precision, dev, metrics, mesh)
         eng._keys = layout.get("keys")
         eng._outdeg = layout.get("outdeg")
         eng._indeg = layout.get("indeg")
-        eng._operands = tuple(o.to(dev) for o in layout["operands"])
-        eng._dang = layout["dang"].to(dev)
-        if layout.get("scales") is not None:
-            eng._scales = layout["scales"].to(dev)
+        if backend in SHARDED_BACKENDS:
+            eng._operands = tuple(layout["operands"])
+            eng._dang = layout["dang"]
+            eng._scales = layout.get("scales")
+            eng.layout = eng._sharded_layout_name(
+                eng._operands[0].shape[1] if backend == "ell_sharded"
+                else None)
+        else:
+            eng._operands = tuple(o.to(dev) for o in layout["operands"])
+            eng._dang = layout["dang"].to(dev)
+            if layout.get("scales") is not None:
+                eng._scales = layout["scales"].to(dev)
         if eng.precision != "f32":
             eng.layout = f"{eng.layout}[{eng.precision}]"
         eng._record_layout_bytes()
@@ -370,12 +472,34 @@ class PageRankEngine:
     def _put(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _shard(self, a, spec, dtype=None) -> ShardedTensor:
+        """A host array (or CPU tensor) cut over the mesh by ``spec``, in
+        ``dtype`` (default: its own)."""
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(a))
+        if dtype is not None:
+            t = t.to(dtype)
+        return ShardedTensor.from_global(t, self.mesh, spec)
+
+    def _pad_replicated(self, v: np.ndarray) -> ShardedTensor:
+        padded = np.zeros((self._n_pad,), np.float32)
+        padded[:self.n] = v
+        return self._shard(padded, P())
+
+    def _sharded_layout_name(self, k: int | None) -> str:
+        if self.backend == "dense_sharded":
+            r, c = self.mesh.shape.values()
+            return f"dense_sharded({r}x{c} mesh, n_pad={self._n_pad})"
+        return (f"ell_sharded(k={k}, shards={self.mesh.size}, "
+                f"n_pad={self._n_pad})")
+
     def _prepare_layout(self, src: np.ndarray, dst: np.ndarray) -> None:
         """Build the backend's prepared device layout from a deduplicated
         COO edge list, in numpy first, as the JAX package builds it."""
         n = self.n
         dang = tr.dangling_mask(src, n).astype(np.float32)
-        self._dang = self._put(dang)
+        if self.backend not in SHARDED_BACKENDS:
+            self._dang = self._put(dang)
         self._mv_backend = self.backend
         self.layout = self.backend
         self._scales = None
@@ -402,6 +526,8 @@ class PageRankEngine:
             self._operands = self._quantize_split_ell(ops)
         elif self.backend == "bsr":
             self._operands = (self._prepare_bsr(src, dst),)
+        elif self.backend in SHARDED_BACKENDS:
+            self._prepare_sharded(src, dst, dang)
         else:                                   # fused_dense
             H = torch.from_numpy(
                 tr.transition_dense_np(src, dst, n, fix_dangling=False))
@@ -420,6 +546,45 @@ class PageRankEngine:
         if self.precision != "f32":
             self.layout = f"{self.layout}[{self.precision}]"
         self._record_layout_bytes()
+
+    def _prepare_sharded(self, src: np.ndarray, dst: np.ndarray,
+                         dang: np.ndarray) -> None:
+        """The two mesh layouts, built in numpy at the padded N and cut
+        over the mesh.  ``dense_sharded``: H dangling-UNFIXED (explicit
+        leak) blocked ``P(row, col)``, int8 scales replicated.
+        ``ell_sharded``: full-K ELL rows over the flattened mesh, where
+        ``ell_k`` is a minimum row capacity and never a truncation (the
+        dynamic engine passes ``maxdeg + slack``), int8 scales row-sharded
+        like the rows."""
+        n, n_pad = self.n, self._n_pad
+        self._ppr_operands = self._ppr_scales = None
+        if self.backend == "dense_sharded":
+            vals = np.zeros((n_pad, n_pad), np.float32)
+            vals[:n, :n] = tr.transition_dense_np(src, dst, n,
+                                                  fix_dangling=False)
+            spec, extra, k = P(*self._axes), (), None
+        else:
+            csr = tr.build_transition_csr(src, dst, n, device="cpu")
+            counts = np.diff(csr.indptr.numpy())
+            maxdeg = int(counts.max()) if len(counts) else 0
+            k = maxdeg if self._ell_k is None else max(int(self._ell_k),
+                                                       maxdeg)
+            ell = ELLMatrix.from_csr(csr, k=k)
+            vals = np.zeros((n_pad, ell.k), np.float32)
+            idx = np.zeros((n_pad, ell.k), np.int32)
+            vals[:n] = ell.data.numpy()
+            idx[:n] = ell.indices.numpy()
+            spec, k = P(self._axes), ell.k
+            extra = (self._shard(idx, spec),)
+        if self.precision == "int8":
+            scales = rowmax_scales(np.abs(vals).max(axis=1, initial=0.0))
+            vals = quantize_int8(vals, scales[:, None])
+            self._scales = self._shard(
+                scales, P() if self.backend == "dense_sharded" else spec)
+        self._operands = (self._shard(vals, spec, self.storage_dtype),
+                          *extra)
+        self._dang = self._pad_replicated(dang)
+        self.layout = self._sharded_layout_name(k)
 
     def _prepare_bsr(self, src: np.ndarray, dst: np.ndarray) -> BSRMatrix:
         """The dangling-unfixed block layout in the storage dtype.  int8
@@ -469,12 +634,65 @@ class PageRankEngine:
 
     @property
     def operands(self) -> tuple:
-        """The prepared (already padded) layout tensors."""
+        """The prepared (already padded; sharded on the mesh tiers) layout
+        tensors."""
         return self._operands
+
+    def _pad_x0(self, x0: torch.Tensor | None) -> torch.Tensor | None:
+        """Zero-pad a warm-start vector to the sharded tiers' padded N."""
+        if x0 is None or self._n_pad == self.n:
+            return x0
+        return F.pad(x0, (0, self._n_pad - self.n))
+
+    def _ppr_layout(self) -> tuple[tuple, ShardedTensor | None]:
+        """The sharded tiers' PPR copy of the layout, placed once at first
+        use (serve flushes never re-gather it, run-only engines never pay
+        it): the row blocks ``P(row, None)`` of H on ``dense_sharded`` (one
+        more H in memory), the replicated ELL operands on
+        ``ell_sharded``."""
+        if self._ppr_operands is None:
+            spec = (P(self._axes[0], None)
+                    if self.backend == "dense_sharded" else P())
+            self._ppr_operands = tuple(fm.reshard(o, spec)
+                                       for o in self._operands)
+            self._ppr_scales = (None if self._scales is None
+                                else fm.reshard(self._scales, P()))
+        return self._ppr_operands, self._ppr_scales
+
+    def lower_run(self) -> dict:
+        """The per-iteration schedule of ``run`` on the sharded tiers, the
+        counterpart of the JAX package's AOT lowering for collective
+        audits: one ``run(1)`` with :mod:`repro_torch.core.fabric_matvec`'s
+        counters zeroed before and read after.  Returns the collectives
+        by kind, the bytes each kind moved, and the shard-local K2 calls by
+        (storage type, batch size) — K2 launches on the card."""
+        if self.backend not in SHARDED_BACKENDS:
+            raise ValueError(f"lower_run audits the sharded tiers, not "
+                             f"{self.backend!r}")
+        fm.reset_counts()
+        self.run(1)
+        out = {"backend": self.backend, "mesh": dict(self.mesh.shape),
+               "devices": [str(d) for d in self.mesh.device_list],
+               "collectives": dict(fm.collectives),
+               "bytes": dict(fm.collective_bytes),
+               "k2_launches": {f"{p},B={b}": c for (p, b), c
+                               in fm.local_products.items()}}
+        fm.reset_counts()
+        return out
 
     # ------------------------------ queries ------------------------------ #
     def run(self, n_iters: int = 100) -> torch.Tensor:
         """Fixed-schedule power iteration, issued with no host sync."""
+        if self.backend == "dense_sharded":
+            return dist.pagerank_distributed(
+                self._operands[0], self.mesh, n_iters, self.d, *self._axes,
+                dangling=self._dang, n_true=self.n,
+                scales=self._scales).full()[:self.n]
+        if self.backend == "ell_sharded":
+            return dist.pagerank_distributed_sparse(
+                *self._operands, self.mesh, n_iters, self.d,
+                dangling=self._dang, axes=self._axes, n_true=self.n,
+                scales=self._scales).full()[:self.n]
         if self.backend == "fused_dense":
             Hp, dangp = self._operands
             return _run_fixed_fused(Hp, dangp, self._scales, n=self.n,
@@ -509,7 +727,20 @@ class PageRankEngine:
             x0 = x0.to(self.device)
         tol_f32 = solve_dtype(tol, name="tol")
         with self.metrics.span("solve", backend=self.backend):
-            if self.backend == "fused_dense":
+            if self.backend in SHARDED_BACKENDS:
+                kw = dict(tol=tol_f32, max_iters=max_iters, d=self.d,
+                          dangling=self._dang, n_true=self.n,
+                          x0=self._pad_x0(x0), watchdog=watchdog,
+                          trace=trace, scales=self._scales)
+                if self.backend == "dense_sharded":
+                    out = dist.pagerank_distributed_tol(
+                        self._operands[0], self.mesh,
+                        row_axis=self._axes[0], col_axis=self._axes[1], **kw)
+                else:
+                    out = dist.pagerank_distributed_sparse_tol(
+                        *self._operands, self.mesh, axes=self._axes, **kw)
+                out = (out[0].full()[:self.n], *out[1:])
+            elif self.backend == "fused_dense":
                 Hp, dangp = self._operands
                 out = _run_tol_fused(
                     Hp, dangp, tol_f32, x0, self._scales, n=self.n,
@@ -539,6 +770,26 @@ class PageRankEngine:
     def _ppr(self, seed_sets: Sequence[np.ndarray],
              n_iters: int) -> torch.Tensor:
         V = seed_matrix(self.n, seed_sets)
+        if self.backend in SHARDED_BACKENDS:
+            # the query axis is padded to the mesh column count (dense) or
+            # the shard count (ell) with zero columns, sliced back after
+            q = V.shape[1]
+            q_shards = (self.mesh.shape[self._axes[1]]
+                        if self.backend == "dense_sharded"
+                        else self.mesh.size)
+            q_pad = -(-q // q_shards) * q_shards
+            Vp = np.zeros((self._n_pad, q_pad), np.float32)
+            Vp[:self.n, :q] = V
+            ops, scales = self._ppr_layout()
+            if self.backend == "dense_sharded":
+                PR = dist.ppr_distributed_dense(
+                    ops[0], self._dang, self._put(Vp), self.mesh, n_iters,
+                    self.d, *self._axes, scales=scales)
+            else:
+                PR = dist.ppr_distributed_sparse(
+                    *ops, self._dang, self._put(Vp), self.mesh, n_iters,
+                    self.d, axes=self._axes, scales=scales)
+            return PR.full()[:self.n, :q]
         if self.backend == "fused_dense":
             Hp, dangp = self._operands
             Vp = np.zeros((V.shape[1], Hp.shape[1]), np.float32)

@@ -32,19 +32,27 @@ not met within ``max_pushes`` sweeps falls back to an exact batched
 On the card the hub columns and the answers come to the host once per
 build and once per answer (an explicit ``.cpu()``), never inside a loop.
 On ``fused_dense`` every push sweep is one launch of the streaming kernel
-for all (padded) queries, on ``bsr`` one launch of the BSR kernel.  The push runs in the port's chunked tolerance
-loop (:mod:`repro_torch.obs.trace`): it stops at the same sweep as the
-JAX ``while_loop`` and issues at most ``CHUNK - 1`` masked sweeps after
-that, which change nothing.  The sharded tiers are not ported.
+for all (padded) queries, on ``bsr`` one launch of the BSR kernel, on
+``dense_sharded`` one K2 launch per mesh position (its row block of H with
+its mesh column's queries).  ``ell_sharded`` pushes against the engine's
+replicated PPR copy of its layout.  The push runs in the port's chunked
+tolerance loop (:mod:`repro_torch.obs.trace`): it stops at the same sweep
+as the JAX ``while_loop`` and issues at most ``CHUNK - 1`` masked sweeps
+after that, which change nothing.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.fabric_matvec import ShardedTensor
+from repro_torch.kernels.common import upcast_f32
 from repro_torch.obs.registry import default_registry
 from repro_torch.obs.trace import instrumented_tol_loop
-from repro_torch.pagerank.engine import _ppr_fused_operator, _ppr_matvec
+from repro_torch.pagerank.distributed import ppr_matmat_dense
+from repro_torch.pagerank.engine import (SHARDED_BACKENDS,
+                                         _ppr_fused_operator, _ppr_matvec,
+                                         _row_scale)
 from repro_torch.pagerank.steps import ppr_step_batched, seed_matrix
 
 __all__ = ["LandmarkIndex"]
@@ -92,6 +100,29 @@ def _hub_push(operands, dang, V, X0, tol, *, backend: str, n: int,
         return ppr_step_batched(mv, X, V, dang, d)
 
     return _batched_push(Ab, X0, tol, n, max_pushes)
+
+
+def _hub_push_sharded(e, V, X0, tol, *, max_pushes: int):
+    """The push on a sharded engine's PPR copy, in the (N_pad, Q) layout:
+    ``dense_sharded`` through its row blocks (K2), ``ell_sharded`` through
+    the replicated full-K ELL operands on the mesh's first device."""
+    ops, scales = e._ppr_layout()
+    dang = e._dang.full()
+    if e.backend == "dense_sharded":
+        def mv(X):
+            return ppr_matmat_dense(ops[0], X, e.mesh, *e._axes,
+                                    scales=scales)
+    else:
+        data, idx = (upcast_f32(ops[0].shards[0]), ops[1].shards[0])
+        sc = None if scales is None else scales.shards[0]
+
+        def mv(X):
+            return _row_scale(torch.sum(data[..., None] * X[idx], dim=1), sc)
+
+    def Ab(X):
+        return ppr_step_batched(mv, X, V, dang, e.d)
+
+    return _batched_push(Ab, X0, tol, e.n, max_pushes)
 
 
 def _hub_push_fused(Hp, dangp, scales, Vp, X0p, tol, *, n: int,
@@ -166,7 +197,10 @@ class LandmarkIndex:
                       n_iters=self.n_iters).cpu().numpy().astype(np.float64)
             # x(e_h) = c_h · R e_h with c_h = (1−d) + d·dangᵀx(e_h): divide
             # the normalization back out so columns combine linearly
-            dang = e._dang.cpu().numpy().astype(np.float64)[:e.n]
+            dang = e._dang
+            if isinstance(dang, ShardedTensor):
+                dang = dang.full()
+            dang = dang.cpu().numpy().astype(np.float64)[:e.n]
             c = (1.0 - e.d) + e.d * (dang @ X)                    # (H,)
             self._Y = (X / c[None, :]).astype(np.float32)
             self._hub_pos = np.full(e.n, -1, np.int64)
@@ -278,6 +312,14 @@ class LandmarkIndex:
             out = _hub_push_fused(Hp, dangp, e._scales, e._put(Vp),
                                   e._put(X0p), tol, n=e.n,
                                   max_pushes=max_pushes, d=e.d)
+        elif e.backend in SHARDED_BACKENDS:
+            q = V.shape[1]
+            Vp = np.zeros((e._n_pad, q), np.float32)
+            X0p = np.zeros((e._n_pad, q), np.float32)
+            Vp[:e.n], X0p[:e.n] = V, X0
+            out = _hub_push_sharded(e, e._put(Vp), e._put(X0p), tol,
+                                    max_pushes=max_pushes)
+            out = (out[0][:e.n], *out[1:])
         else:
             # the layout tag, not the backend: a dynamic ell engine pushes
             # on its SELL layout

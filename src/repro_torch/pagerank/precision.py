@@ -102,6 +102,8 @@ def _leaves(tree):
             yield from _leaves(t)
     elif hasattr(tree, "tensors"):          # a container: BSRMatrix
         yield from tree.tensors()
+    elif hasattr(tree, "shards"):           # a ShardedTensor: its global
+        yield tree                          # size, as a JAX sharded array
     elif tree is not None:
         raise TypeError(f"layout leaf of type {type(tree).__name__}")
 

@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.graph.delta import GraphDelta
 from repro_torch.kernels._build import KernelBuildError, KernelLaunchError
+from repro_torch.kernels.common import resolve_device
 
 __all__ = [
     "GROWTH_FACTOR", "GROWTH_PATIENCE", "watchdog_init", "watchdog_update",
@@ -58,8 +59,10 @@ GROWTH_FACTOR = 8.0
 GROWTH_PATIENCE = 4
 
 
-def watchdog_init(device: str | torch.device = "cpu"):
-    """Initial ``(grow, ok)`` watchdog carry for a tolerance loop."""
+def watchdog_init(device: str | torch.device | None = None):
+    """Initial ``(grow, ok)`` watchdog carry for a tolerance loop, on
+    ``device`` (default ``"cuda"``; raises without CUDA)."""
+    device = resolve_device(device)
     return (torch.zeros((), dtype=torch.int32, device=device),
             torch.ones((), dtype=torch.bool, device=device))
 
@@ -511,7 +514,9 @@ class FaultInjector:
         tensor by 32 — a spectral radius ≫ 1, the deterministic way to
         exercise the residual-growth (``diverged``) watchdog rather than
         the NaN/Inf check.  The tensor is edited through a float32 host
-        copy and written back in its storage dtype on its device."""
+        copy and written back in its storage dtype on its device; a sharded
+        operand (the sharded tiers') is written back onto its own mesh
+        positions in its own layout."""
         ops = list(engine._operands)
         target = None
         for i, op in enumerate(ops):
@@ -523,7 +528,9 @@ class FaultInjector:
             raise ValueError("no float layout array to corrupt")
         op = ops[target]
         is_bsr = hasattr(op, "blocks")
-        dev_arr = op.blocks if is_bsr else op
+        is_sharded = hasattr(op, "shards")
+        dev_arr = (op.blocks if is_bsr else
+                   op.full() if is_sharded else op)
         arr = dev_arr.detach().to("cpu", torch.float32).numpy().copy()
         flat = arr.reshape(-1)
         if kind == "scale":
@@ -538,6 +545,12 @@ class FaultInjector:
             flat[idx] = {"nan": np.nan, "inf": np.inf, "huge": 1e4}[kind]
         new = torch.from_numpy(arr).to(device=dev_arr.device,
                                        dtype=dev_arr.dtype)
+        if is_sharded:
+            new = type(op).from_global(new, op.mesh, op.spec)
+            if engine.backend == "dense_sharded":
+                # its PPR reads the row blocks of H, which must see the
+                # poison as the JAX tier's per-call reshard does
+                engine._ppr_operands = None
         ops[target] = (dataclasses.replace(op, blocks=new) if is_bsr
                        else new)
         engine._operands = tuple(ops)

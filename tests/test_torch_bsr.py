@@ -296,7 +296,15 @@ def test_bsr_tier_goes_through_the_bsr_kernel(net, monkeypatch):
 
 
 def test_select_backend_keeps_ell_for_sparse_graphs_on_cuda():
-    """The port has the bsr tier, but the CUDA auto policy keeps ell for
-    sparse graphs until a density sweep on the card sets its thresholds."""
-    assert tengine.select_backend(5000, 0.0016, device="cuda") == "ell"
+    """The port has the bsr tier, but on one card the auto policy never
+    picks it: the density sweep (scripts/backend_sweep.py, PERF.md) found
+    bsr fastest in no cell.  Sparse graphs above N = 5000 keep ell; up to
+    N = 5000 the dense tier won at every density swept."""
+    assert tengine.select_backend(10000, 0.0016, device="cuda",
+                                  n_devices=1) == "ell"
+    assert tengine.select_backend(5000, 0.0016, device="cuda",
+                                  n_devices=1) == "dense"
     assert "bsr" in tengine.BACKENDS
+    assert all(tengine.select_backend(n, p, device="cuda", n_devices=1)
+               != "bsr" for n in (300, 5000, 10000, 50000)
+               for p in (0.0005, 0.001, 0.02, 0.1, 0.5))

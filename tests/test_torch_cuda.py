@@ -3,7 +3,9 @@ the streaming matvec K2, the BSR SpMV K3 and the unpadded step K4) against
 their plain versions, the wrappers' checks on CUDA tensors, the engine's
 fused and ``bsr`` tiers (``run``, ``run_tol`` and batched PPR) with their
 launch counts, ``ops.pagerank_iteration``, one dynamic update per
-patchable tier, and the fabric simulator (hop mode, the full-width
+patchable tier, the sharded mesh tiers on a mesh of the card against the
+same calls on a CPU mesh (K2 at their shard shapes against its plain
+version), and the fabric simulator (hop mode, the full-width
 hop-mode matvec and the tiled schedule) against its CPU run.  K2 and K3 run at every batch width of their kernels,
 and a NaN in one query's x is held to that query.  K1 and K4 run at the
 edges of their row-streaming core (one CTA's rows, fewer rows than SMs,
@@ -34,6 +36,7 @@ from repro_torch.kernels import pagerank_step as k1
 from repro_torch.kernels import streaming_matvec as k2
 from repro_torch.kernels.ref import (bsr_spmv_ref, pagerank_step_fused_ref,
                                      pagerank_step_ref, streaming_matvec_ref)
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.obs.registry import NullRegistry
 from repro_torch.pagerank import (DynamicPageRankEngine, LandmarkIndex,
                                   PageRankEngine)
@@ -541,6 +544,119 @@ def test_dynamic_update_on_card(cuda, backend):
     if counts is not None:
         issued = -(-info.iters // 8) * 8
         assert counts["f32"] - before == 1 + issued
+    s2, d2 = apply_delta(src, dst, delta, n)
+    ref = PageRankEngine(s2, d2, n, backend="dense", device=cuda,
+                         metrics=NullRegistry()).run(300)
+    assert float(torch.sum(torch.abs(pr - ref))) <= 1e-5
+
+
+# --------------------------------------------------------------------- #
+# the sharded mesh tiers on a mesh of the card                          #
+# --------------------------------------------------------------------- #
+SHARD_MESHES = {"dense_sharded": ((2, 2), ("row", "col")),
+                "ell_sharded": ((4,), ("shard",))}
+
+
+def _shard_mesh(backend, device):
+    shape, axes = SHARD_MESHES[backend]
+    return make_mesh(shape, axes, [device] * int(np.prod(shape)))
+
+
+# the shard-local products of dense_sharded at N = 5000: 2 x 2 tiles at
+# B = 1, 1 x 4 tiles (1250 columns, padded by the wrapper), and the PPR row
+# blocks with Q / C queries (8 or 64 queries over 2 or 4 mesh columns)
+@pytest.mark.parametrize("precision", list(STORE))
+@pytest.mark.parametrize("N,M,B", [(2500, 2500, 1), (5000, 1250, 1),
+                                   (2500, 5000, 4), (2500, 5000, 32),
+                                   (5000, 5000, 2), (5000, 5000, 16)])
+def test_streaming_matvec_at_shard_shapes(cuda, N, M, B, precision):
+    W, X = _smv_case(N, M, B, precision, cuda, seed=N + M + B)
+    Y = k2.streaming_matvec(W, X)
+    torch.cuda.synchronize()
+    ref = streaming_matvec_ref(W, X)
+    torch.testing.assert_close(Y, ref, **TOL32)
+    torch.testing.assert_close(Y, ref, **TIGHT)
+    assert torch.equal(k2.streaming_matvec(W, X), Y)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("backend", list(SHARD_MESHES))
+def test_sharded_tier_on_card_matches_cpu(cuda, backend, precision):
+    """run, run_tol and ppr on a mesh of the card against the same calls on
+    a CPU mesh of the same shape (rtol 1e-5, atol 1e-7, iterations within
+    1); dense_sharded launches K2 once per shard per iteration."""
+    n = 1000
+    src, dst = protein_network(n, seed=3)
+    kw = dict(backend=backend, precision=precision, metrics=NullRegistry())
+    card = PageRankEngine(src, dst, n, mesh=_shard_mesh(backend, cuda), **kw)
+    cpu = PageRankEngine(src, dst, n, mesh=_shard_mesh(backend, "cpu"), **kw)
+    tiles = 4 if backend == "dense_sharded" else 0
+    before = k2.batch_launches[precision, 1]
+    pr = card.run(50)
+    torch.cuda.synchronize()
+    assert k2.batch_launches[precision, 1] - before == tiles * 50
+    assert pr.device.type == "cuda"
+    torch.testing.assert_close(pr.cpu(), cpu.run(50), rtol=1e-5, atol=1e-7)
+    r, c = card.run_tol(tol=1e-7), cpu.run_tol(tol=1e-7)
+    assert abs(r.info.iters - c.info.iters) <= 1
+    torch.testing.assert_close(r.pr.cpu(), c.pr, rtol=1e-5, atol=1e-7)
+    sets = [[3, 50], [120], [7, 8, 9], [400]]
+    before = k2.batch_launches[precision, 2]
+    X = card.ppr(sets, n_iters=40)
+    torch.cuda.synchronize()
+    assert k2.batch_launches[precision, 2] - before == tiles * 40
+    torch.testing.assert_close(X.cpu(), cpu.ppr(sets, n_iters=40),
+                               rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("backend", list(SHARD_MESHES))
+def test_sharded_landmarks_on_card_match_cpu(cuda, backend):
+    """A 16-hub landmark build and the push of one answer on a mesh of the
+    card (dense_sharded: K2 on the row blocks of H) against the same on a
+    CPU mesh: the hubs and sweeps equal, the columns and answers within
+    rtol 1e-5, atol 1e-7."""
+    n = 1000
+    src, dst = protein_network(n, seed=3)
+    got = {}
+    for dev in (cuda, "cpu"):
+        eng = PageRankEngine(src, dst, n, backend=backend,
+                             mesh=_shard_mesh(backend, dev),
+                             metrics=NullRegistry())
+        lm = LandmarkIndex(eng, n_hubs=16, tol=1e-7, n_iters=60,
+                           metrics=NullRegistry())
+        lm.build(0)
+        X, info = lm.answer([[3, 50], [120], [7, 8, 9]])
+        got[str(dev)] = (lm.hubs, lm._Y, X, info)
+    (h, Y, X, info), (hc, Yc, Xc, infoc) = got.values()
+    assert np.array_equal(h, hc) and info["sweeps"] == infoc["sweeps"]
+    np.testing.assert_allclose(Y, Yc, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(X, Xc, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("backend", list(SHARD_MESHES))
+def test_sharded_dynamic_update_on_card(cuda, backend):
+    """A push update on a mesh of the card, written into the shards that
+    own the change, held to a from-scratch solve (L1 <= 1e-5)."""
+    n = 1200
+    src, dst = protein_network(n, seed=5)
+    dyn = DynamicPageRankEngine(src, dst, n, backend=backend,
+                                mesh=_shard_mesh(backend, cuda),
+                                metrics=NullRegistry())
+    dyn.run_tol(1e-7, max_iters=500)
+    have = set(edge_keys(src, dst, n).tolist())
+    rng = np.random.default_rng(6)
+    pairs = []
+    while len(pairs) < 3:
+        u, v = (int(x) for x in rng.integers(0, n, 2))
+        if u != v and u * n + v not in have and v * n + u not in have:
+            pairs.append((u, v))
+    iu, iv = np.array(pairs).T
+    delta = GraphDelta(iu, iv, src[:2], dst[:2])
+    pr, info = dyn.update(delta)
+    torch.cuda.synchronize()
+    assert info.strategy == "push" and info.healthy
+    assert all(s.device.type == "cuda" for o in dyn.operands
+               for s in o.shards)
     s2, d2 = apply_delta(src, dst, delta, n)
     ref = PageRankEngine(s2, d2, n, backend="dense", device=cuda,
                          metrics=NullRegistry()).run(300)

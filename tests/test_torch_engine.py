@@ -22,6 +22,7 @@ from repro.pagerank import PageRankEngine as JEngine
 from repro.pagerank import engine as jengine
 from repro.pagerank.dense import pagerank_dense as jpagerank_dense
 from repro.pagerank.sparse import top_k_proteins as jtop_k
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.obs import registry as treg
 from repro_torch.obs.trace import TRACE_LEN, SolveTrace
 from repro_torch.pagerank import ConvergenceError
@@ -33,13 +34,21 @@ from repro_torch.pagerank.sparse import top_k_proteins as ttop_k
 
 # port backend name -> JAX backend name: the one table the tests read
 BACKEND_MAP = {"dense": "dense", "ell": "ell", "bsr": "bsr",
-               "fused_dense": "pallas_dense"}
+               "fused_dense": "pallas_dense",
+               "dense_sharded": "dense_sharded",
+               "ell_sharded": "ell_sharded"}
+# the sharded tiers run on the JAX default mesh of conftest's 8 devices
+# and on a CPU mesh of the same shape in the port
+SHARDED_MESH = {"dense_sharded": ((2, 4), ("row", "col")),
+                "ell_sharded": ((8,), ("shard",))}
 PRECISIONS = ("f32", "bf16", "f16", "int8")
 # engine vs reference (tests/test_pagerank_engine.py)
 TOL = {"dense": dict(rtol=1e-5, atol=1e-7), "ell": dict(rtol=1e-4,
                                                         atol=1e-7),
        "bsr": dict(rtol=1e-5, atol=1e-7),
-       "fused_dense": dict(rtol=1e-5, atol=1e-7)}
+       "fused_dense": dict(rtol=1e-5, atol=1e-7),
+       "dense_sharded": dict(rtol=1e-5, atol=1e-7),
+       "ell_sharded": dict(rtol=1e-5, atol=1e-7)}
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
@@ -51,12 +60,20 @@ def net():
     return n, src, dst
 
 
+def _tmesh(backend):
+    if backend not in SHARDED_MESH:
+        return None
+    shape, axes = SHARDED_MESH[backend]
+    return make_mesh(shape, axes, ["cpu"] * int(np.prod(shape)))
+
+
 def _pair(net, backend, precision="f32"):
     n, src, dst = net
     j = JEngine(src, dst, n, backend=BACKEND_MAP[backend],
                 precision=precision, metrics=jreg.NullRegistry())
     t = TEngine(src, dst, n, backend=backend, precision=precision,
-                device="cpu", metrics=treg.NullRegistry())
+                device="cpu", mesh=_tmesh(backend),
+                metrics=treg.NullRegistry())
     return j, t
 
 
@@ -66,8 +83,8 @@ def _np(x):
 
 def _leaves(operands):
     """The operand tensors, a container (BSRMatrix) flattened in its JAX
-    pytree leaf order."""
-    return [t for o in operands
+    pytree leaf order, a sharded operand as its global tensor."""
+    return [t.full() if hasattr(t, "shards") else t for o in operands
             for t in (o.tensors() if hasattr(o, "tensors") else (o,))]
 
 
@@ -264,15 +281,15 @@ def test_layout_bytes_and_carried_layout(net, backend, precision):
               "scales": None if j._scales is None else np.asarray(j._scales),
               "dang": np.asarray(j._dang)}
     lay = layout_from_numpy(backend, arrays, precision=precision,
-                            device="cpu")
+                            device="cpu", mesh=t.mesh)
     assert len(lay["operands"]) == len(t.operands)
     assert len(_leaves(lay["operands"])) == len(_leaves(t.operands))
     for a, b in zip(_leaves(lay["operands"]), _leaves(t.operands)):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert (lay["scales"] is None) == (t._scales is None)
     if t._scales is not None:
-        assert torch.equal(lay["scales"], t._scales)
-    assert torch.equal(lay["dang"], t._dang)
+        assert torch.equal(*_leaves((lay["scales"], t._scales)))
+    assert torch.equal(*_leaves((lay["dang"], t._dang)))
     e = TEngine.from_layout(backend, lay, net[0], precision=precision,
                             device="cpu", metrics=treg.NullRegistry())
     assert e.layout_bytes == t.layout_bytes
@@ -291,18 +308,16 @@ def test_layout_from_numpy_rejects_mismatch(net):
 
 
 def test_select_backend_parity():
-    """cpu: the JAX choice; cuda: the JAX TPU choice with pallas_dense ->
-    fused_dense and bsr -> ell (the port has the bsr tier, but its CUDA
-    thresholds wait for a density sweep on the card)."""
-    to_port = {"pallas_dense": "fused_dense", "bsr": "ell", "dense": "dense",
-               "ell": "ell"}
+    """cpu: the JAX choice; one card: the sweep's choice
+    (scripts/backend_sweep.py, PERF.md), which on an H100 is the ``dense``
+    tier up to N = 5000 at every density, where the JAX TPU policy takes
+    pallas_dense, ell or bsr."""
     for n, density in [(200, 0.5), (200, 0.25), (500, 0.1), (500, 0.01),
                        (100, 0.01)]:
         assert tengine.select_backend(n, density, device="cpu") == \
             jengine.select_backend(n, density, device="cpu", n_devices=1)
-        assert tengine.select_backend(n, density, device="cuda") == \
-            to_port[jengine.select_backend(n, density, device="tpu",
-                                           n_devices=1)]
+        assert tengine.select_backend(n, density, device="cuda",
+                                      n_devices=1) == "dense"
     with pytest.raises(ValueError):
         tengine.select_backend(10, 0.5, device="cpu", precision="f64")
 
@@ -444,8 +459,13 @@ def test_import_hygiene_subprocess():
         "b = build_transition_bsr(src, dst, 64, bs=32, device='cpu')\n"
         "ops.spmv(b, torch.rand(64)); build_transition_ell(src, dst, 64,\n"
         "    device='cpu')\n"
-        "for b in ('dense', 'ell', 'bsr', 'fused_dense'):\n"
-        "    e = PageRankEngine(src, dst, 64, backend=b, device='cpu')\n"
+        "from repro_torch.pagerank.engine import default_mesh\n"
+        "for b in ('dense', 'ell', 'bsr', 'fused_dense', 'dense_sharded',\n"
+        "          'ell_sharded'):\n"
+        "    mesh = (default_mesh(b, 'cpu', 4) if b.endswith('sharded')\n"
+        "            else None)\n"
+        "    e = PageRankEngine(src, dst, 64, backend=b, device='cpu',\n"
+        "                       mesh=mesh)\n"
         "    e.run(5); e.run_tol(1e-6, max_iters=50)\n"
         "    X = e.ppr([[1, 2], [3]], n_iters=10)\n"
         "    lm = LandmarkIndex(e, n_hubs=4, n_iters=20)\n"
@@ -457,7 +477,7 @@ def test_import_hygiene_subprocess():
         "    st = EdgeStream(64, m_edges=3, seed=1)\n"
         "    s0, d0 = st.base()\n"
         "    dyn = DynamicPageRankEngine(s0, d0, 64, backend=b,\n"
-        "                                device='cpu')\n"
+        "                                device='cpu', mesh=mesh)\n"
         "    dyn.run_tol(1e-7)\n"
         "    qe = PageRankQueryEngine(dyn, n_iters=20, cache=ResultCache(8))\n"
         "    qe.push_update(st.step()); qe.push_update(st.step())\n"
@@ -490,6 +510,11 @@ def test_import_hygiene_subprocess():
         "pr, steps, secs = pagerank_on_fabric(H, n_iters=3)\n"
         "assert steps == 3 * 70\n"
         "assert schedule.pagerank_tiled(H, n_iters=2).steps == 2 * 70\n"
+        "from repro_torch.launch.mesh import make_mesh\n"
+        "from repro_torch.core import fabric_matvec as fm\n"
+        "from repro_torch.pagerank import distributed\n"
+        "fm.fabric_gemv_batched(torch.rand(8, 4), torch.rand(2, 4),\n"
+        "    make_mesh((2, 2), ('data', 'model'), ['cpu'] * 4))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"

@@ -771,3 +771,18 @@ def test_card_faults_propagate(net, monkeypatch, fault, entry):
     want = _entry(JAX, jeng, jqe, entry)
     assert got == want
     assert want in ("failed", "restored") or set(want) == {"degraded"}
+
+
+def test_watchdog_init_runs_on_the_card_unless_asked(monkeypatch):
+    """No public function of the port defaults to the CPU: the watchdog
+    carry goes on the card, raises without CUDA, and lands on the CPU only
+    when the caller names it (as the JAX carry starts at 0 and True)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tres.watchdog_init()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tres.watchdog_init("cuda")
+    grow, ok = tres.watchdog_init("cpu")
+    assert grow.device.type == ok.device.type == "cpu"
+    assert grow.dtype == torch.int32 and int(grow) == 0
+    assert ok.dtype == torch.bool and bool(ok)

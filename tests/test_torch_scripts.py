@@ -1,11 +1,12 @@
 """The card scripts on the CPU: ``chip_smoke.py``,
-``scripts/k2_tile_sweep.py`` and ``scripts/step_tile_sweep.py`` refuse to
-run without a card (non-zero exit, no result line), ``chip_smoke.py``
-refuses to run outside the repository, reads the registers and spills of
-every instantiation of the streaming matvec kernel (K2) and of the
-PageRank steps (K1, K4) from an ``nvcc -Xptxas -v`` log, and bounds K2's
-and K3's operations by the cheapest float32-accurate split product on the
-tensor cores."""
+``scripts/k2_tile_sweep.py``, ``scripts/step_tile_sweep.py``,
+``scripts/backend_sweep.py`` and ``scripts/mesh_cards_check.py`` refuse to
+run without a card (non-zero exit, no result line), ``chip_smoke.py`` refuses to run outside the repository,
+reads the registers and spills of every instantiation of the streaming
+matvec kernel (K2) and of the PageRank steps (K1, K4) from an ``nvcc
+-Xptxas -v`` log, and bounds K2's and K3's operations by the cheapest
+float32-accurate split product on the tensor cores.  The port's examples
+run on the CPU and print what the JAX package's examples print."""
 import os
 import subprocess
 import sys
@@ -142,3 +143,74 @@ def test_split_bound_takes_the_cheapest_scheme(storage, scheme, products,
     # no scheme of the table is cheaper than the one taken
     assert all(ms <= 2 * k * terms / r * 1e3
                for k, _, r in chip_smoke.SPLIT_SCHEMES[storage])
+
+
+def test_mesh_cards_check_fails_without_a_card(no_card):
+    out = _run(["scripts/mesh_cards_check.py"], ROOT)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+    assert '"tiers"' not in out.stdout
+
+
+def test_backend_sweep_fails_without_a_card(no_card):
+    out = _run(["scripts/backend_sweep.py"], ROOT)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+    assert "dense_wins_from_density" not in out.stdout
+
+
+# --------------------------------------------------------------------------- #
+# the port's examples on the CPU against the JAX package's                    #
+# --------------------------------------------------------------------------- #
+def example(args, *, jax_devices=8):
+    """One example script's run: PYTHONPATH=src, JAX on ``jax_devices``
+    virtual CPU devices; fails the test on a non-zero exit."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count="
+                         f"{jax_devices}")
+    out = subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return out.stdout
+
+
+def test_distributed_example_matches_jax():
+    """The 4 x 4 mesh at N = 1024 held to the dense tier at rtol 2e-4, the
+    all-reduces per iteration (the JAX example counts them in the compiled
+    HLO, the port's from ``lower_run``) and the served top-1 proteins."""
+    import re
+    jax_out = example(["examples/distributed_pagerank.py"], jax_devices=16)
+    out = example(["examples/torch_distributed_pagerank.py",
+                    "--device", "cpu"])
+    for text in (jax_out, out):
+        assert "distributed == single-device reference: OK" in text
+
+    def grab(pattern, text):
+        return re.search(pattern, text).group(1)
+
+    assert grab(r"all-reduce x(\d+)", out) == grab(r"all-reduce x(\d+)",
+                                                  jax_out)
+    assert "'psum': 1, 'psum_masked': 1" in out
+    assert "K2 launches {'f32,B=1': 16}" in out
+    assert grab(r"top-1 proteins (\[.*\])", out) == grab(
+        r"top-1 proteins (\[.*\])", jax_out)
+
+
+def test_protein_network_example_matches_jax():
+    """The launcher example at N = 300: the same top-10 proteins as the
+    JAX example, every tier (the sharded ones on 4 CPU positions) within
+    the launcher's own gate of the dense tier."""
+    import re
+    args = ["--nodes", "300", "--iters", "20"]
+    jax_out = example(["examples/pagerank_protein_network.py", *args])
+    out = example(["examples/torch_pagerank_protein_network.py", *args,
+                    "--device", "cpu", "--shards", "4"])
+
+    def top(text):
+        return re.findall(r"\((\d+), ", re.search(r"top-10 proteins: (.*)",
+                                                   text).group(1))
+
+    assert top(out) == top(jax_out) and len(top(out)) == 10
+    for tier in ("dense_sharded", "ell_sharded"):
+        assert f"engine_{tier}" in out and f"engine_{tier}" in jax_out
