@@ -94,6 +94,22 @@ result line):
    ticks of the streaming stream on both sharded tiers (ranks within L1
    1e-5 of a fresh solve), and K2 flushed at the 2500 x 2500 tile beside
    ``torch.mv`` (a row of the kernel table);
+3i. the LM stack's token-serving path (no kernel of the port: the JAX
+   package computes it outside Pallas): llama3-8b at its full published
+   width (8,030,257,152 parameters, bf16) drawn on the card from a seeded
+   generator; the JAX launcher's default traffic through
+   ``repro_torch.launch.serve.run`` (6 requests, 3 slots, 16 new tokens,
+   ``max_len`` 128) and one request at T = 0.8, every greedy ``serve``
+   output equal to ``generate``; one request's decode logits held to
+   ``forward`` over the prompt plus the generated prefix (bf16
+   tolerance), its greedy tokens equal to ``forward``'s argmax wherever
+   the top-2 gap is over twice the measured difference; prefill and
+   decode times (CUDA events), tokens/s and one decode step's kernels and
+   device time under ``torch.profiler`` beside its byte bounds (the
+   weights alone, and as ported with the head's f32 upcast); the ten
+   smoke configs in float32 on the card against the CPU (``forward``,
+   ``prefill``, 4 ``decode_step``s, every cache entry); and
+   ``examples/torch_serve_lm.py`` in its own process;
 4. times on the card (CUDA events, medians) beside each kernel's bound:
    the kernel, its plain version and the library call each with the L2
    cache flushed before the call, and the kernel back to back as well
@@ -237,6 +253,22 @@ LM_TOL, LM_MAX_PUSHES = 1e-7, 256
 # does not keep the mass at 1, so those tiers get the JAX suite's slack
 # (tests/test_precision.py SUM_TOL) and are held to the dense tier's sums
 SUM_TOL = {"f32": 1e-3, "bf16": 0.06, "f16": 0.01, "int8": 0.2}
+# phase 3i: llama3-8b at full width served as the JAX launcher's defaults
+# (launch/serve.py: 6 requests, 3 slots, 16 new tokens, max_len 128);
+# decode logits against forward's in bf16 within LLM_BF16_ATOL; the smoke
+# configs card against CPU in float32 within LLM_F32_TOL (kinds as in
+# tests/lm_parity.py), over prompts of 8 tokens, a 16-position cache and
+# 4 decode steps; the timed prefills and decode steps
+LLM_ARCH, LLM_MAX_LEN = "llama3-8b", 128
+# decode vs forward at full width in bf16: 0.364 measured on logits up to
+# 5.16 (NVIDIA H100 80GB HBM3, 700 W), the two paths rounding their
+# bf16 products apart over 32 layers
+LLM_BF16_ATOL = 0.5
+LLM_F32_TOL = {"logits": dict(rtol=1e-5, atol=1e-4),
+               "kv": dict(rtol=1e-5, atol=2e-4),
+               "state": dict(rtol=1e-4, atol=1e-3)}
+LLM_SMOKE_PROMPT, LLM_SMOKE_MAX_LEN, LLM_SMOKE_DECODES = 8, 16, 4
+LLM_TIMED_PREFILLS, LLM_TIMED_DECODES = 7, 30
 
 
 # the storage types of K3's instantiations, as the compiler mangles them
@@ -1124,6 +1156,315 @@ def fabric_phase(np, torch, dev, src, dst, card) -> dict:
           f"{out['hop_cycle_ms']:.3f} ms (20 back to back); the paper's "
           f"model of its own fabric for the same run: {model_ms:.2f} ms at "
           "200 MHz (printed beside, not compared)")
+    return out
+
+
+def lm_inputs(np, cfg, rng, length: int) -> dict:
+    """Numpy inputs of one LM call at batch 1: tokens, or frame embeddings
+    for the audio family."""
+    if cfg.embed_input:
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (1, length))}
+    else:
+        batch = {"embeds": rng.standard_normal(
+            (1, length, cfg.d_model)).astype(np.float32)}
+    return batch
+
+
+def lm_smoke_vs_cpu(np, torch, dev, arch: str) -> dict:
+    """One smoke config in float32 on the card against the CPU on the
+    same weights and inputs: ``forward``, ``prefill`` and four
+    ``decode_step``s, logits and every cache entry (``LLM_F32_TOL``).
+    Returns the largest difference of each kind."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+
+    cfg = get_smoke_config(arch)
+    cpu = M.init_params(cfg, 0, device="cpu")
+    card = M.init_params(cfg, 0, device="cpu").to(dev)
+    rng = np.random.default_rng(0)
+    batch = lm_inputs(np, cfg, rng, LLM_SMOKE_PROMPT)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = rng.standard_normal(
+            (1, cfg.n_vision_tokens, cfg.vision_dim)).astype(np.float32)
+    errs = Counter()
+
+    def held(kind, a, b, what):
+        tol = LLM_F32_TOL[kind]
+        b = b.to(a.device)
+        err = float((a.float() - b.float()).abs().max())
+        check(bool(torch.allclose(a.float(), b.float(), **tol)),
+              f"{arch} {what}: card vs CPU max|diff| {err:.3e} outside "
+              f"{tol}")
+        errs[kind] = max(errs[kind], err)
+
+    def both(b):
+        return ({k: torch.from_numpy(v) for k, v in b.items()},
+                {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+
+    hb, db = both(batch)
+    (hl, ha), (dl, da) = M.forward(cpu, hb, cfg), M.forward(card, db, cfg)
+    held("logits", hl, dl, "forward logits")
+    held("logits", ha["aux_loss"], da["aux_loss"], "forward aux_loss")
+    (hl, hc), (dl, dc) = (M.prefill(cpu, hb, cfg, LLM_SMOKE_MAX_LEN),
+                          M.prefill(card, db, cfg, LLM_SMOKE_MAX_LEN))
+    held("logits", hl, dl, "prefill logits")
+    for step in range(LLM_SMOKE_DECODES + 1):
+        check(set(hc) == set(dc) and int(hc["len"]) == int(dc["len"]),
+              f"{arch}: the caches differ in layout or fill")
+        for name in sorted(set(hc) - {"len"}):
+            kind = "state" if name in ("ssm", "conv") else "kv"
+            held(kind, hc[name], dc[name], f"cache {name} after "
+                 f"{step} decode steps")
+        if step == LLM_SMOKE_DECODES:
+            break
+        hb, db = both(lm_inputs(np, cfg, rng, 1))
+        (hl, hc), (dl, dc) = (M.decode_step(cpu, hb, hc, cfg),
+                              M.decode_step(card, db, dc, cfg))
+        held("logits", hl, dl, f"decode step {step} logits")
+    return dict(errs)
+
+
+def lm_phase(np, torch, dev, card) -> dict:
+    """Phase 3i: the LM stack's token-serving path.  (a) llama3-8b at its
+    full published width in bf16, drawn on the card from a seeded
+    generator; (b) the JAX launcher's default traffic through the port's
+    ``launch/serve.run`` (6 requests, prompts of 5-8 tokens from
+    ``default_rng(0)``, 3 slots, 16 new tokens, ``max_len`` 128, greedy)
+    and one request at T = 0.8: every request done with all its tokens,
+    each greedy ``serve`` output equal to ``generate`` on its prompt, and
+    one request's decode logits at every generated position held to
+    ``forward`` over the prompt plus the generated prefix
+    (``LLM_BF16_ATOL``), its greedy tokens equal to ``forward``'s argmax
+    wherever the top-2 gap is over twice the measured difference; (c)
+    prefill and decode times (CUDA events), the serve's tokens/s and one
+    decode step under ``torch.profiler``, beside the step's byte bounds;
+    (d) the ten smoke configs in float32 on the card against the CPU
+    (``lm_smoke_vs_cpu``); (e) ``examples/torch_serve_lm.py`` in its own
+    process."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch import serve as lm_launch
+    from repro_torch.models import model as M
+    from repro_torch.obs.registry import (MetricsRegistry,
+                                          set_default_registry)
+    from repro_torch.serve import ServeEngine
+
+    out = {}
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls must be off for the float32 comparisons")
+    # (a) full width, drawn on the card
+    cfg = get_config(LLM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.d_ff, cfg.vocab_size, cfg.dtype, cfg.param_count())
+          == (32, 4096, 32, 8, 14336, 128256, "bfloat16", 8_030_257_152),
+          f"the llama3-8b config changed: {cfg}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    params = list(model.parameters())
+    n_params = sum(p.numel() for p in params)
+    weight_bytes = sum(p.numel() * p.element_size() for p in params)
+    # the tree also holds the final norm's scales, which param_count omits
+    check(n_params == cfg.param_count() + cfg.d_model
+          and all(p.dtype == torch.bfloat16 and p.device.type == "cuda"
+                  for p in params), f"{n_params} parameters")
+    out["params"], out["weight_bytes"] = n_params, weight_bytes
+    out["init_max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  llama3-8b at full width: {n_params:,} parameters "
+          f"({cfg.param_count():,} by param_count, + the final norm's "
+          f"{cfg.d_model}), {weight_bytes / 1e9:.2f} GB of bf16, drawn on "
+          f"the card in {out['init_s']:.2f} s; "
+          f"torch.cuda.max_memory_allocated {out['init_max_memory_gb']:.2f}"
+          " GB")
+
+    # (b) the launcher's default traffic, then one request at T = 0.8
+    def launch(extra):
+        reg = MetricsRegistry()
+        prev = set_default_registry(reg)
+        try:
+            reqs = lm_launch.run(["--arch", LLM_ARCH] + extra, model=model)
+        finally:
+            set_default_registry(prev)
+        return reqs, reg.histogram("launch.serve_batch_ms").summary()["max"]
+
+    reqs, serve_ms = launch([])
+    check(len(reqs) == 6 and all(
+        r.done and len(r.output) == 16 and 5 <= len(r.prompt) <= 8
+        for r in reqs), "the launcher's traffic: a request not done")
+    engine = ServeEngine(cfg, model, max_len=LLM_MAX_LEN)
+    for r in reqs:
+        check(engine.generate(r.prompt, r.max_new_tokens) == r.output,
+              f"request {r.uid}: serve and generate disagree")
+    tokens = sum(len(r.output) for r in reqs)
+    out["serve"] = {"requests": len(reqs), "tokens": tokens,
+                    "ms": serve_ms, "tokens_per_s": tokens / serve_ms * 1e3}
+    hot, hot_ms = launch(["--requests", "1", "--temperature", "0.8"])
+    check(len(hot) == 1 and hot[0].done and len(hot[0].output) == 16
+          and all(0 <= t < cfg.vocab_size for t in hot[0].output),
+          "the T = 0.8 request")
+    out["sampled_ms"] = hot_ms
+    print(f"  the launcher's traffic (6 requests, prompts of 5-8 tokens, 3 "
+          f"slots, 16 new tokens, max_len {LLM_MAX_LEN}, greedy): "
+          f"{tokens} tokens in {serve_ms:.1f} ms "
+          f"({out['serve']['tokens_per_s']:.1f} tokens/s); serve == "
+          f"generate for every request; one request at T = 0.8: 16 tokens "
+          f"in the vocabulary ({hot_ms:.1f} ms)")
+
+    # decode against forward over the prompt plus the generated prefix
+    r = reqs[0]
+    prompt = torch.as_tensor(r.prompt, dtype=torch.long, device=dev)
+    logits, cache = M.prefill(model, {"tokens": prompt[None]}, cfg,
+                              LLM_MAX_LEN)
+    steps = [logits[0]]
+    for t in r.output[:-1]:
+        logits, cache = M.decode_step(
+            model, {"tokens": torch.tensor([[t]], device=dev)}, cache, cfg)
+        steps.append(logits[0])
+    decoded = torch.stack(steps)                         # (16, V)
+    seq = torch.cat([prompt, torch.tensor(r.output[:-1], device=dev)])
+    fwd, _ = M.forward(model, {"tokens": seq[None]}, cfg)
+    fwd = fwd[0, len(r.prompt) - 1:]
+    check(bool(torch.isfinite(decoded).all() and torch.isfinite(fwd).all()),
+          "non-finite logits at full width")
+    diff = float((decoded - fwd).abs().max())
+    check(diff <= LLM_BF16_ATOL, f"decode vs forward: max|diff| {diff:.4f} "
+          f"over the bf16 tolerance {LLM_BF16_ATOL}")
+    top2 = fwd.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * diff
+    want = fwd.argmax(-1).tolist()
+    for i in range(len(r.output)):
+        check(not bool(decided[i]) or r.output[i] == want[i],
+              f"token {i}: greedy {r.output[i]}, forward's argmax "
+              f"{want[i]} with a top-2 gap over 2 x {diff:.4f}")
+    out["decode_vs_forward"] = {
+        "max_abs_diff": diff, "atol": LLM_BF16_ATOL,
+        "logit_scale": float(fwd.abs().max()),
+        "checked": int(decided.sum()), "skipped": int((~decided).sum()),
+        "positions": len(r.output)}
+    dvf = out["decode_vs_forward"]
+    print(f"  decode vs forward over request 0 ({dvf['positions']} "
+          f"positions): max|diff| {diff:.4f} of logits up to "
+          f"{dvf['logit_scale']:.2f} (bf16 tolerance {LLM_BF16_ATOL}); "
+          f"greedy == forward's argmax at the {dvf['checked']} positions "
+          f"with a top-2 gap over 2 x max|diff|, {dvf['skipped']} "
+          f"positions skipped")
+
+    # (c) times: prefill of request 0's prompt, then decode steps at one
+    # slot, each between two CUDA events (the host's issue time included)
+    def event_times(fn, n):
+        pairs = []
+        for _ in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        times = [s.elapsed_time(e) for s, e in pairs]
+        return {"median_ms": statistics.median(times), "min_ms": min(times),
+                "max_ms": max(times)}
+
+    out["prefill"] = event_times(
+        lambda: M.prefill(model, {"tokens": prompt[None]}, cfg, LLM_MAX_LEN),
+        LLM_TIMED_PREFILLS)
+    out["prefill"]["tokens"] = len(r.prompt)
+    _, cache = M.prefill(model, {"tokens": prompt[None]}, cfg, LLM_MAX_LEN)
+    tok = torch.tensor([[r.output[0]]], device=dev)
+    for _ in range(3):                                   # warm-up
+        M.decode_step(model, {"tokens": tok}, cache, cfg)
+    out["decode"] = event_times(
+        lambda: M.decode_step(model, {"tokens": tok}, cache, cfg),
+        LLM_TIMED_DECODES)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        M.decode_step(model, {"tokens": tok}, cache, cfg)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name, n_by_name = Counter(), Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us()
+        n_by_name[e.name] += 1
+    fill = int(cache["len"])
+    # the byte bound of a step: every parameter but the embedding table
+    # read once, plus the K / V of the filled positions; as ported, the
+    # head's f32 copy is written and read once more (layers.lm_head)
+    stream_bytes = weight_bytes - model["embed"]["table"].numel() * 2
+    kv_bytes = 2 * cfg.n_layers * fill * cfg.n_kv_heads * cfg.head_dim * 2
+    upcast_bytes = 2 * model["head"]["kernel"].numel() * 4
+    out["bound"] = {
+        "weights_gb": stream_bytes / 1e9, "kv_gb": kv_bytes / 1e9,
+        "head_upcast_gb": upcast_bytes / 1e9,
+        "weights_ms": stream_bytes / HBM_BYTES_PER_S * 1e3,
+        "kv_ms": kv_bytes / HBM_BYTES_PER_S * 1e3,
+        "as_ported_ms": (stream_bytes + kv_bytes + upcast_bytes)
+        / HBM_BYTES_PER_S * 1e3}
+    out["profiled_step"] = {
+        "kernels": len(kernels) or None,
+        "device_busy_ms": busy_us / 1e3 if kernels else None,
+        "wall_ms": wall_us / 1e3,
+        "device_share": busy_us / wall_us if kernels else None,
+        "top_kernels": [{"kernel": k, "launches": n_by_name[k], "us": us}
+                        for k, us in by_name.most_common(5)]}
+    b, p = out["bound"], out["profiled_step"]
+    print(f"  times on {card}: prefill of {len(r.prompt)} tokens "
+          f"{out['prefill']['median_ms']:.3f} ms [min "
+          f"{out['prefill']['min_ms']:.3f}, max {out['prefill']['max_ms']:.3f}"
+          f"] (median of {LLM_TIMED_PREFILLS}); decode at one slot "
+          f"{out['decode']['median_ms']:.3f} ms per step [min "
+          f"{out['decode']['min_ms']:.3f}, max {out['decode']['max_ms']:.3f}]"
+          f" (CUDA events, median of {LLM_TIMED_DECODES}); serve "
+          f"{out['serve']['tokens_per_s']:.1f} tokens/s")
+    print(f"  one decode step under torch.profiler on {card}: "
+          + (f"{p['kernels']} kernels, {p['device_busy_ms']:.3f} ms of "
+             f"device time in {p['wall_ms']:.3f} ms of wall (device busy "
+             f"{100 * p['device_share']:.1f} %; the profiler's own cost "
+             "is in the wall)" + "".join(
+                 f"; {r['launches']} x {kernel_label(r['kernel'])} "
+                 f"{r['us']:.1f} us" for r in p["top_kernels"])
+             if kernels else
+             "device time not measured (the profiler recorded no device "
+             "events)")
+          + f"; byte bound: {b['weights_gb']:.2f} GB of weights at 3.35 "
+          f"TB/s {b['weights_ms']:.2f} ms + the K / V of {fill} positions "
+          f"{b['kv_ms']:.4f} ms; with the head's f32 upcast as ported "
+          f"(+{b['head_upcast_gb']:.2f} GB) {b['as_ported_ms']:.2f} ms")
+    del model, engine, cache, params, decoded, fwd, logits
+    torch.cuda.empty_cache()
+
+    # (d) every architecture's smoke config, card against CPU
+    out["smoke_vs_cpu"] = {arch: lm_smoke_vs_cpu(np, torch, dev, arch)
+                           for arch in ARCH_IDS}
+    worst = {k: max(e.get(k, 0.0) for e in out["smoke_vs_cpu"].values())
+             for k in LLM_F32_TOL}
+    print(f"  the {len(ARCH_IDS)} smoke configs in float32, card vs CPU "
+          f"(forward, prefill, {LLM_SMOKE_DECODES} decode steps; TF32 off):"
+          f" largest max|diff| logits {worst['logits']:.2e}, K / V "
+          f"{worst['kv']:.2e}, SSM / conv states {worst['state']:.2e} "
+          f"(tolerances {LLM_F32_TOL})")
+
+    # (e) the example in its own process
+    t0 = time.perf_counter()
+    ex = subprocess.run([sys.executable,
+                         str(ROOT / "examples" / "torch_serve_lm.py")],
+                        capture_output=True, text=True, timeout=600,
+                        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)})
+    check(ex.returncode == 0 and ex.stdout.rstrip().endswith(
+        "serve_lm: OK"), f"torch_serve_lm.py exited {ex.returncode}: "
+        f"{ex.stdout[-2000:]} {ex.stderr[-2000:]}")
+    out["example_s"] = time.perf_counter() - t0
+    print(f"  examples/torch_serve_lm.py on the card: serve_lm: OK "
+          f"({out['example_s']:.2f} s)")
     return out
 
 
@@ -2070,6 +2411,16 @@ def main() -> int:
     sharded_stats["phase_s"] = time.perf_counter() - t_shard
     print(f"  sharded phase took {sharded_stats['phase_s']:.2f} s")
 
+    # --------------------------------------------------------------- 3i --
+    print(f"LM serving: {LLM_ARCH} at its full published width in bf16, "
+          "the launcher's traffic, decode against forward, prefill and "
+          "decode times; the ten smoke configs card against CPU; the "
+          "serve example")
+    t_lm = time.perf_counter()
+    lm_stats = lm_phase(np, torch, dev, card)
+    lm_stats["phase_s"] = time.perf_counter() - t_lm
+    print(f"  LM phase took {lm_stats['phase_s']:.2f} s")
+
     # ---------------------------------------------------------------- 4 --
     print(f"times on {card} (CUDA events, medians of CUDA-graph replays; "
           "'flushed': one call after a 256 MiB write evicts the L2, "
@@ -2426,6 +2777,7 @@ def main() -> int:
                       "fabric": fabric_stats,
                       "sharded": {k: v for k, v in sharded_stats.items()
                                   if k != "k2_row"},
+                      "lm": lm_stats,
                       "k2_launches_by_step": {
                           step: {f"{p},B={b}": n for (p, b), n in c.items()}
                           for step, c in k2_steps.items()},

@@ -1,0 +1,15 @@
+"""llama3-8b [dense]: 32L d_model=4096 32H (GQA kv=8) d_ff=14336
+vocab=128256 [arXiv:2407.21783; unverified] — GQA, 128k vocab."""
+from repro_torch.configs.base import ModelConfig
+
+def full() -> ModelConfig:
+    return ModelConfig(
+        name="llama3-8b", family="dense", n_layers=32, d_model=4096,
+        n_heads=32, n_kv_heads=8, d_ff=14336, vocab_size=128256,
+        head_dim=128, rope_theta=500_000.0)
+
+def smoke() -> ModelConfig:
+    return ModelConfig(
+        name="llama3-8b-smoke", family="dense", n_layers=2, d_model=64,
+        n_heads=4, n_kv_heads=1, d_ff=128, vocab_size=256, head_dim=16,
+        dtype="float32", remat_policy="none")

@@ -1,13 +1,24 @@
-"""Multi-user personalized-PageRank serving over one prepared graph.
+"""Serving: LM token requests, and multi-user personalized PageRank over
+one prepared graph.
 
-The PyTorch counterpart of ``repro.serve.engine.PageRankQueryEngine`` and
-``PPRQuery``.  Per-user seed sets queue up and are flushed as **one**
-batched (N, Q) propagation through
-:meth:`repro_torch.pagerank.engine.PageRankEngine.ppr` — Q queries share
-each sweep over H instead of paying Q independent power iterations (the
-MELOPPR batching).  Two optional, independent accelerations sit in front
-of it: a :class:`~repro_torch.serve.cache.ResultCache` answers repeated
-seed sets on the host, and a
+The PyTorch counterpart of ``repro.serve.engine``.  :class:`ServeEngine`
+serves token requests from a language model
+(:mod:`repro_torch.models`): prefill + decode with slot-based continuous
+batching, a host-side scheduler over ``n_slots`` sequences, each with
+its own batch-1 decode cache, as in the JAX engine.  Prefill and decode
+run eagerly (the JAX engine jits them once per shape).  Greedy decoding
+is ``argmax``; temperature sampling draws the Gumbel-max of the scaled
+logits from a seeded ``torch.Generator`` on the logits' device — the
+distribution of ``jax.random.categorical``, from another random stream.
+
+:class:`PageRankQueryEngine` and ``PPRQuery`` serve PageRank.  Per-user
+seed sets queue up and are flushed as **one** batched (N, Q) propagation
+through :meth:`repro_torch.pagerank.engine.PageRankEngine.ppr` — Q
+queries share each sweep over H instead of paying Q independent power
+iterations (the MELOPPR batching).  Two optional, independent
+accelerations sit in front of it: a
+:class:`~repro_torch.serve.cache.ResultCache` answers repeated seed sets
+on the host, and a
 :class:`~repro_torch.pagerank.landmarks.LandmarkIndex` replaces the cold
 solve with hub-combination warm starts plus a short residual push.
 
@@ -36,19 +47,22 @@ flush records one ``serve`` event (schema v1, the JAX package's keys) and
 the ``serve.*`` counters and histograms; the resilient mode adds the
 ``dead_letter``, ``refresh`` and ``watchdog`` events and the per-status
 counters, so ``scripts/obs_report.py`` re-derives the port's log.
-
-Not ported yet: the LM decoder ``ServeEngine`` (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from collections import deque
+from typing import Callable
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.graph.delta import compose
 from repro_torch.graph.validate import (DeadLetterQueue, ValidationPolicy,
                                         validate_delta)
+from repro_torch.models import model as M
 from repro_torch.obs.registry import default_registry
 from repro_torch.pagerank.resilience import (RankStore, ResilientRefresher,
                                              RetryPolicy, is_kernel_fault,
@@ -56,7 +70,137 @@ from repro_torch.pagerank.resilience import (RankStore, ResilientRefresher,
 from repro_torch.pagerank.sparse import top_k_proteins
 from repro_torch.serve.cache import ResultCache
 
-__all__ = ["PPRQuery", "PageRankQueryEngine", "ServeResilience"]
+__all__ = ["Request", "ServeEngine", "batched_decode_fn", "PPRQuery",
+           "PageRankQueryEngine", "ServeResilience"]
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray            # (S,) int32
+    max_new_tokens: int = 32
+    temperature: float = 0.0      # 0 => greedy
+    output: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    """Single-host token server over one model (a
+    :class:`~repro_torch.models.model.LanguageModel`); the prompts and
+    tokens live on the model's device."""
+
+    def __init__(self, cfg: ModelConfig, params, max_len: int = 512,
+                 eos_id: int | None = None, seed: int = 0):
+        if not cfg.embed_input:
+            raise ValueError("token serving requires an embedding frontend")
+        self.cfg = cfg
+        self.params = params
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.device = params.device
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _prefill(self, prompt: np.ndarray):
+        tokens = torch.as_tensor(np.asarray(prompt, np.int64),
+                                 device=self.device)[None, :]
+        return M.prefill(self.params, {"tokens": tokens}, self.cfg,
+                         self.max_len)
+
+    def _decode(self, tok: torch.Tensor, cache: dict):
+        """One step on ``cache``, which it writes in place."""
+        return M.decode_step(self.params, {"tokens": tok[:, None]}, cache,
+                             self.cfg)
+
+    # ---------------- single-sequence paths ---------------- #
+    def generate(self, prompt: np.ndarray, max_new_tokens: int = 32,
+                 temperature: float = 0.0) -> list[int]:
+        logits, cache = self._prefill(prompt)
+        out = []
+        tok = self._sample(logits, temperature)
+        for _ in range(max_new_tokens):
+            t = int(tok[0])
+            out.append(t)
+            if self.eos_id is not None and t == self.eos_id:
+                break
+            logits, cache = self._decode(tok, cache)
+            tok = self._sample(logits, temperature)
+        return out
+
+    # ---------------- batched continuous serving ---------------- #
+    def serve(self, requests: list[Request], n_slots: int = 4,
+              max_steps: int = 10_000) -> list[Request]:
+        """Run all requests to completion with ``n_slots`` slots.
+        Sequences are prefilled independently (per-slot prefill) and each
+        active slot decodes one token per step; finished slots are
+        refilled from the queue."""
+        queue = deque(requests)
+        slots: list[Request | None] = [None] * n_slots
+        # exposed as self._caches so tests (and memory accounting) can
+        # verify drained slots release their KV cache
+        self._caches = caches = [None] * n_slots
+        last_tok: list[torch.Tensor | None] = [None] * n_slots
+
+        def fill_slot(i: int) -> None:
+            if not queue:
+                # drain: drop the finished sequence's KV cache too, so it
+                # stops pinning device memory for the rest of the serve
+                slots[i] = None
+                caches[i] = None
+                last_tok[i] = None
+                return
+            req = queue.popleft()
+            logits, cache = self._prefill(req.prompt)
+            tok = self._sample(logits, req.temperature)
+            req.output.append(int(tok[0]))
+            slots[i] = req
+            caches[i] = cache
+            last_tok[i] = tok
+
+        for i in range(n_slots):
+            fill_slot(i)
+
+        for _ in range(max_steps):
+            active = [i for i, r in enumerate(slots) if r is not None]
+            if not active:
+                break
+            for i in active:
+                req = slots[i]
+                done = (len(req.output) >= req.max_new_tokens or
+                        (self.eos_id is not None
+                         and req.output[-1] == self.eos_id))
+                if done:
+                    req.done = True
+                    fill_slot(i)
+            active = [i for i, r in enumerate(slots) if r is not None]
+            if not active:
+                break
+            # one decode step per active slot (batch-1 caches), as in the
+            # JAX engine; batched_decode_fn is the fixed-batch step
+            for i in active:
+                req = slots[i]
+                logits, caches[i] = self._decode(last_tok[i], caches[i])
+                tok = self._sample(logits, req.temperature)
+                req.output.append(int(tok[0]))
+                last_tok[i] = tok
+        return requests
+
+    def _sample(self, logits: torch.Tensor,
+                temperature: float) -> torch.Tensor:
+        if temperature <= 0.0:
+            return logits.argmax(dim=-1)
+        # Gumbel-max: argmax(logits / T + G) with G = -log(-log U)
+        u = torch.rand(logits.shape, generator=self._gen,
+                       device=logits.device, dtype=torch.float32)
+        u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+        return (logits / temperature - torch.log(-torch.log(u))).argmax(-1)
+
+
+def batched_decode_fn(cfg: ModelConfig) -> Callable:
+    """The fixed-batch decode step (one batched cache for every
+    sequence); it writes the cache it is given, as ``decode_step``."""
+    def step(params, batch, cache):
+        return M.decode_step(params, batch, cache, cfg)
+    return step
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,8 +5,10 @@ fused and ``bsr`` tiers (``run``, ``run_tol`` and batched PPR) with their
 launch counts, ``ops.pagerank_iteration``, one dynamic update per
 patchable tier, the sharded mesh tiers on a mesh of the card against the
 same calls on a CPU mesh (K2 at their shard shapes against its plain
-version), and the fabric simulator (hop mode, the full-width
-hop-mode matvec and the tiled schedule) against its CPU run.  K2 and K3 run at every batch width of their kernels,
+version), the fabric simulator (hop mode, the full-width hop-mode matvec
+and the tiled schedule) against its CPU run, and the LM stack's ten smoke
+models and token server against the CPU.  K2 and K3 run at every batch
+width of their kernels,
 and a NaN in one query's x is held to that query.  K1 and K4 run at the
 edges of their row-streaming core (one CTA's rows, fewer rows than SMs,
 rows that are not 16-byte aligned, H at an element offset), a NaN in x
@@ -885,3 +887,29 @@ def test_fabric_creators_default_to_the_card(cuda):
     m = isa.from_hex("00f44121999a0051")
     assert m.opcode.device.type == "cuda"
     assert isa.to_hex(m) == "00f44121999a0051"
+
+
+# --------------------------------------------------------------------------- #
+# the LM stack (no kernel of its own): the card by default.  chip_smoke.py's  #
+# phase 3i holds the ten smoke configs on the card to their CPU runs          #
+# --------------------------------------------------------------------------- #
+def test_lm_serving_defaults_to_the_card(cuda):
+    """init_params, init_cache, ssm_decode_init and rope_frequencies
+    default to the card; the token server on the card gives the CPU's
+    greedy tokens."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import layers, ssm
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+    cfg = get_smoke_config("llama3-8b")
+    lm = M.init_params(cfg, 0)
+    assert all(p.device.type == "cuda" for p in lm.parameters())
+    assert M.init_cache(cfg, 1, 8)["k"].device.type == "cuda"
+    state = ssm.ssm_decode_init(get_smoke_config("mamba2-2.7b"), 1)
+    assert all(t.device.type == "cuda" for t in state)
+    assert layers.rope_frequencies(16, 1e4).device.type == "cuda"
+    host = M.init_params(cfg, 0, device="cpu")
+    card = M.init_params(cfg, 0, device="cpu").to(cuda)   # moves in place
+    prompt = np.array([3, 1, 4, 1, 5], np.int32)
+    card_out = ServeEngine(cfg, card).generate(prompt, 12)
+    assert card_out == ServeEngine(cfg, host).generate(prompt, 12)

@@ -515,6 +515,30 @@ def test_import_hygiene_subprocess():
         "from repro_torch.pagerank import distributed\n"
         "fm.fabric_gemv_batched(torch.rand(8, 4), torch.rand(2, 4),\n"
         "    make_mesh((2, 2), ('data', 'model'), ['cpu'] * 4))\n"
+        "from repro_torch.configs import get_smoke_config, get_config\n"
+        "from repro_torch.models import model as M\n"
+        "from repro_torch.models.convert import cache_to_numpy\n"
+        "from repro_torch.serve import ServeEngine, Request\n"
+        "from repro_torch.launch import serve as lm_serve\n"
+        "M.abstract_params(get_config('llama3-8b'))\n"
+        "for arch in ('llama3-8b', 'olmoe-1b-7b', 'mamba2-2.7b',\n"
+        "             'zamba2-2.7b', 'musicgen-large',\n"
+        "             'llama-3.2-vision-90b'):\n"
+        "    cfg = get_smoke_config(arch)\n"
+        "    lm = M.init_params(cfg, 0, device='cpu')\n"
+        "    b = ({'tokens': torch.zeros((1, 4), dtype=torch.long)}\n"
+        "         if cfg.embed_input else\n"
+        "         {'embeds': torch.rand(1, 4, cfg.d_model)})\n"
+        "    if cfg.family == 'vlm':\n"
+        "        b['vision_embeds'] = torch.rand(1, cfg.n_vision_tokens,\n"
+        "                                        cfg.vision_dim)\n"
+        "    M.forward(lm, b, cfg)\n"
+        "    _, c = M.prefill(lm, b, cfg, 8)\n"
+        "    d = {k: v[:, :1] for k, v in b.items() if k != 'vision_embeds'}\n"
+        "    M.decode_step(lm, d, c, cfg); cache_to_numpy(c)\n"
+        "cfg = get_smoke_config('llama3-8b')\n"
+        "se = ServeEngine(cfg, M.init_params(cfg, 0, device='cpu'))\n"
+        "se.serve([Request(0, np.arange(1, 5, dtype=np.int32), 2)])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
