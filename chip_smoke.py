@@ -110,6 +110,21 @@ result line):
    smoke configs in float32 on the card against the CPU (``forward``,
    ``prefill``, 4 ``decode_step``s, every cache entry); and
    ``examples/torch_serve_lm.py`` in its own process;
+3j. the LM training path (no kernel of the port either: the JAX trainer
+   is ``jnp`` outside Pallas): the ten smoke configs' ``train_step`` on
+   the card against the CPU from the same weights and a fixed-seed batch
+   (loss, gradient norm, every gradient leaf) and each backward repeated
+   on the card (bit-equal or not); internlm2-1.8b at its full published
+   width and depth (1,889,634,304 parameters, a float32 master copy, bf16
+   activations, the config's "full" remat) through
+   ``repro_torch.launch.train.run`` for 5 steps of 2 x 4096 tokens in two
+   microbatches: every loss and gradient norm finite, step 1's loss
+   against a no_grad forward, "full" remat against "none" at 512 tokens,
+   the step times (CUDA events around each ``train_step``), tokens/s, the
+   model-FLOPs share, ``max_memory_allocated`` and one step under
+   ``torch.profiler``; the launcher's fault drill at smoke size
+   (``--fail-at 3``, then ``--resume``) bit-equal to an uninterrupted run;
+   and ``examples/torch_train_lm.py --large`` in its own process;
 4. times on the card (CUDA events, medians) beside each kernel's bound:
    the kernel, its plain version and the library call each with the L2
    cache flushed before the call, and the kernel back to back as well
@@ -269,6 +284,21 @@ LLM_F32_TOL = {"logits": dict(rtol=1e-5, atol=1e-4),
                "state": dict(rtol=1e-4, atol=1e-3)}
 LLM_SMOKE_PROMPT, LLM_SMOKE_MAX_LEN, LLM_SMOKE_DECODES = 8, 16, 4
 LLM_TIMED_PREFILLS, LLM_TIMED_DECODES = 7, 30
+# phase 3j: LM training.  The smoke configs' train step on the card
+# against the CPU within the CPU-vs-JAX tolerances of tests/train_parity.py
+# (loss rtol 1e-5, gradient norm rtol 1e-4, each gradient leaf within 1e-3
+# of its largest CPU gradient), on a (2, 16) batch from a fixed seed;
+# internlm2-1.8b at full width through the launcher (train_4k's sequence,
+# two microbatches of one); step 1's loss against a no_grad forward within
+# tests/lm_parity.py's bf16 logits tolerance; "full" remat against "none"
+# at TRAIN_REMAT_SEQ, each leaf within TRAIN_GRAD_SHARE of its largest
+# gradient
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 5, 2, 4096, 2
+TRAIN_REMAT_SEQ = 512
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, TRAIN_GRAD_SHARE = 1e-5, 1e-4, 1e-3
+TRAIN_BF16_ATOL = 0.1
+TRAIN_SMOKE_SHAPE = (2, 16)
 
 
 # the storage types of K3's instantiations, as the compiler mangles them
@@ -1224,6 +1254,32 @@ def lm_smoke_vs_cpu(np, torch, dev, arch: str) -> dict:
     return dict(errs)
 
 
+def profile_once(torch, fn) -> dict:
+    """Kernels and device time of one call of ``fn`` under
+    torch.profiler, against its wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name, n_by_name = Counter(), Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us()
+        n_by_name[e.name] += 1
+    return {"kernels": len(kernels) or None,
+            "device_busy_ms": busy_us / 1e3 if kernels else None,
+            "wall_ms": wall_us / 1e3,
+            "device_share": busy_us / wall_us if kernels else None,
+            "top_kernels": [{"kernel": k, "launches": n_by_name[k], "us": us}
+                            for k, us in by_name.most_common(5)]}
+
+
 def lm_phase(np, torch, dev, card) -> dict:
     """Phase 3i: the LM stack's token-serving path.  (a) llama3-8b at its
     full published width in bf16, drawn on the card from a seeded
@@ -1241,9 +1297,6 @@ def lm_phase(np, torch, dev, card) -> dict:
     (d) the ten smoke configs in float32 on the card against the CPU
     (``lm_smoke_vs_cpu``); (e) ``examples/torch_serve_lm.py`` in its own
     process."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.launch import serve as lm_launch
     from repro_torch.models import model as M
@@ -1382,19 +1435,8 @@ def lm_phase(np, torch, dev, card) -> dict:
     out["decode"] = event_times(
         lambda: M.decode_step(model, {"tokens": tok}, cache, cfg),
         LLM_TIMED_DECODES)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        M.decode_step(model, {"tokens": tok}, cache, cfg)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name, n_by_name = Counter(), Counter()
-    for e in kernels:
-        by_name[e.name] += e.time_range.elapsed_us()
-        n_by_name[e.name] += 1
+    out["profiled_step"] = profile_once(
+        torch, lambda: M.decode_step(model, {"tokens": tok}, cache, cfg))
     fill = int(cache["len"])
     # the byte bound of a step: every parameter but the embedding table
     # read once, plus the K / V of the filled positions; as ported, the
@@ -1409,13 +1451,6 @@ def lm_phase(np, torch, dev, card) -> dict:
         "kv_ms": kv_bytes / HBM_BYTES_PER_S * 1e3,
         "as_ported_ms": (stream_bytes + kv_bytes + upcast_bytes)
         / HBM_BYTES_PER_S * 1e3}
-    out["profiled_step"] = {
-        "kernels": len(kernels) or None,
-        "device_busy_ms": busy_us / 1e3 if kernels else None,
-        "wall_ms": wall_us / 1e3,
-        "device_share": busy_us / wall_us if kernels else None,
-        "top_kernels": [{"kernel": k, "launches": n_by_name[k], "us": us}
-                        for k, us in by_name.most_common(5)]}
     b, p = out["bound"], out["profiled_step"]
     print(f"  times on {card}: prefill of {len(r.prompt)} tokens "
           f"{out['prefill']['median_ms']:.3f} ms [min "
@@ -1432,7 +1467,7 @@ def lm_phase(np, torch, dev, card) -> dict:
              "is in the wall)" + "".join(
                  f"; {r['launches']} x {kernel_label(r['kernel'])} "
                  f"{r['us']:.1f} us" for r in p["top_kernels"])
-             if kernels else
+             if p["kernels"] else
              "device time not measured (the profiler recorded no device "
              "events)")
           + f"; byte bound: {b['weights_gb']:.2f} GB of weights at 3.35 "
@@ -1465,6 +1500,311 @@ def lm_phase(np, torch, dev, card) -> dict:
     out["example_s"] = time.perf_counter() - t0
     print(f"  examples/torch_serve_lm.py on the card: serve_lm: OK "
           f"({out['example_s']:.2f} s)")
+    return out
+
+
+def train_smoke_batch(np, torch, cfg, dev) -> dict:
+    """make_batch's inputs at TRAIN_SMOKE_SHAPE from numpy seed 0 (its
+    own stream is seeded by a per-process str hash)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import batch_shapes
+    rng = np.random.default_rng(0)
+    out = {}
+    shape = ShapeConfig("t", TRAIN_SMOKE_SHAPE[1], TRAIN_SMOKE_SHAPE[0],
+                        "train")
+    for name, (dims, dtype) in batch_shapes(cfg, shape).items():
+        a = (rng.integers(0, cfg.vocab_size, dims, dtype=np.int32)
+             if dtype == torch.int32 else
+             rng.standard_normal(dims).astype(np.float32))
+        out[name] = torch.from_numpy(a).to(dev)
+    return out
+
+
+def grad_share(torch, got, want) -> float:
+    """The largest leaf's max|got - want| over its max|want|."""
+    return max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+               for g, w in zip(got, want, strict=True))
+
+
+def train_smoke_vs_cpu(np, torch, dev, arch: str) -> dict:
+    """One smoke config's gradients (loss_fn + backward) and one
+    train_step on the card and on the CPU from the same weights and
+    batch; the gradients of a second backward on the card against the
+    first, bit for bit or not.  Returns the differences."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.train import (OptimizerConfig, init_opt_state,
+                                   loss_fn, make_train_state, train_step)
+
+    cfg = get_smoke_config(arch)
+    got = {}
+    for side, where in (("cpu", "cpu"), ("card", dev)):
+        model, _ = make_train_state(cfg, 0, device="cpu")
+        model = model.to(where)
+        batch = train_smoke_batch(np, torch, cfg, where)
+        grads = []
+        for _ in range(2 if side == "card" else 1):
+            for p in model.parameters():
+                p.grad = None
+            total, _ = loss_fn(model, batch, cfg)
+            total.backward()
+            grads.append([p.grad.detach().cpu() for p in model.parameters()])
+        _, _, m = train_step(model, init_opt_state(model), batch, cfg,
+                             OptimizerConfig(warmup_steps=2, total_steps=10))
+        got[side] = (float(m["loss"]), float(m["grad_norm"]), grads)
+    (hl, hn, hg), (dl, dn, dg) = got["cpu"], got["card"]
+    out = {"loss_rel": abs(dl - hl) / abs(hl),
+           "grad_norm_rel": abs(dn - hn) / abs(hn),
+           "grad_share": grad_share(torch, dg[0], hg[0]),
+           "repeat_bit_equal": all(torch.equal(a, b)
+                                   for a, b in zip(dg[0], dg[1]))}
+    check(all(bool(torch.isfinite(g).all()) for g in dg[0]),
+          f"{arch}: non-finite gradients on the card")
+    check(out["loss_rel"] <= TRAIN_LOSS_RTOL, f"{arch}: loss card {dl} vs "
+          f"CPU {hl}")
+    check(out["grad_norm_rel"] <= TRAIN_NORM_RTOL, f"{arch}: gradient norm "
+          f"card {dn} vs CPU {hn}")
+    check(out["grad_share"] <= TRAIN_GRAD_SHARE, f"{arch}: a gradient leaf "
+          f"off by {out['grad_share']:.2e} of its largest value")
+    return out
+
+
+def train_phase(np, torch, dev, card) -> dict:
+    """Phase 3j: the LM training path.  (a) the ten smoke configs' train
+    step on the card against the CPU, and each backward repeated on the
+    card (bit-equal or not); (b) internlm2-1.8b at its full published
+    width and depth through ``repro_torch.launch.train.run``
+    (``TRAIN_*``: train_4k's sequence, microbatch 1, the config's own
+    "full" remat and bf16 activations over float32 master weights): every
+    step's loss and gradient norm finite, step 1's loss against a no_grad
+    forward, "full" remat against "none" at ``TRAIN_REMAT_SEQ``, the step
+    times (CUDA events), tokens/s, the model-FLOPs share, peak memory and
+    one profiled step; (c) the smoke-size fault drill through the
+    launcher on the card, bit-equal to an uninterrupted run; (d)
+    ``examples/torch_train_lm.py --large`` in its own process."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import model as M
+    from repro_torch.train import (OptimizerConfig, checkpoint as ckpt,
+                                   init_opt_state, loss_fn, make_train_state)
+    from repro_torch.train.train_step import _split_microbatches
+
+    out = {}
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls must be off for the float32 comparisons")
+    # (a) the smoke configs, card against CPU
+    out["smoke_vs_cpu"] = {arch: train_smoke_vs_cpu(np, torch, dev, arch)
+                           for arch in ARCH_IDS}
+    sv = out["smoke_vs_cpu"]
+    varies = [a for a, e in sv.items() if not e["repeat_bit_equal"]]
+    out["smoke_repeat_not_bit_equal"] = varies
+    print(f"  the {len(ARCH_IDS)} smoke configs' train step, card vs CPU "
+          f"(float32, TF32 off): largest loss rel diff "
+          f"{max(e['loss_rel'] for e in sv.values()):.2e}, gradient norm "
+          f"{max(e['grad_norm_rel'] for e in sv.values()):.2e}, gradient "
+          f"leaf {max(e['grad_share'] for e in sv.values()):.2e} of its "
+          f"largest value (tolerances {TRAIN_LOSS_RTOL}, {TRAIN_NORM_RTOL},"
+          f" {TRAIN_GRAD_SHARE}); a repeated backward on the card is "
+          + ("bit-equal for all ten" if not varies else
+             f"not bit-equal for {varies}"))
+
+    # (b) full width
+    cfg = get_config(TRAIN_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.d_ff, cfg.vocab_size, cfg.dtype, cfg.remat_policy)
+          == (24, 2048, 16, 8, 8192, 92544, "bfloat16", "full"),
+          f"the {TRAIN_ARCH} config changed: {cfg}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev, trainable=True)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    params = list(model.parameters())
+    n_params = sum(p.numel() for p in params)
+    check(all(p.dtype == torch.float32 and p.requires_grad
+              and p.device.type == dev.type for p in params),
+          "the master copy is not trainable float32 on the card")
+    out["params"] = n_params
+    seq, batch, accum, steps = TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS
+    tokens = seq * batch
+
+    # step 1's batch, as the launcher's iterator will make it in this
+    # process, through a no_grad forward: the loss step 1 must report
+    first = make_batch(cfg, ShapeConfig("cli", seq, batch, "train"), 0,
+                       device=dev)
+    with torch.no_grad():
+        fwd_loss = sum(float(loss_fn(model, mb, cfg)[1]["loss"])
+                       for mb in _split_microbatches(first, accum)) / accum
+    del first
+
+    # "full" remat against "none" at a sequence "none" fits
+    short = make_batch(cfg, ShapeConfig("t", TRAIN_REMAT_SEQ, batch,
+                                        "train"), 0, device=dev)
+    remat_grads = {}
+    for policy in ("full", "none"):
+        for p in params:
+            p.grad = None
+        total, _ = loss_fn(model, short,
+                           dataclasses.replace(cfg, remat_policy=policy))
+        total.backward()
+        remat_grads[policy] = [p.grad for p in params]
+    for p in params:
+        p.grad = None
+    share = grad_share(torch, remat_grads["full"], remat_grads["none"])
+    bit_equal = all(torch.equal(a, b) for a, b in
+                    zip(remat_grads["full"], remat_grads["none"]))
+    del remat_grads, short, total
+    check(share <= TRAIN_GRAD_SHARE, f"full remat vs none: a leaf off by "
+          f"{share:.2e} of its largest gradient")
+    out["remat_full_vs_none"] = {"seq": TRAIN_REMAT_SEQ, "grad_share": share,
+                                 "bit_equal": bit_equal}
+
+    # the launcher's run, each train_step between two CUDA events
+    timed = []
+    inner = train_launch.train_step
+
+    def timed_step(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = inner(*a, **kw)
+        end.record()
+        timed.append((start, end, res[2]))
+        return res
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train_launch.train_step = timed_step
+    try:
+        t0 = time.perf_counter()
+        res = train_launch.run([
+            "--arch", TRAIN_ARCH, "--steps", str(steps), "--batch",
+            str(batch), "--seq", str(seq), "--accum", str(accum),
+            "--log-every", "1", "--device", str(dev)], model=model)
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t0
+    finally:
+        train_launch.train_step = inner
+    out["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(len(timed) == steps, f"{len(timed)} steps timed")
+    history = [{k: float(v) for k, v in m.items()} for _, _, m in timed]
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+              for h in history), f"a non-finite step: {history}")
+    check(res["final_loss"] == history[-1]["loss"], "final_loss")
+    diff = abs(history[0]["loss"] - fwd_loss)
+    check(diff <= TRAIN_BF16_ATOL, f"step 1's loss {history[0]['loss']} vs "
+          f"the no_grad forward's {fwd_loss}")
+    ms = [s.elapsed_time(e) for s, e, _ in timed]
+    later = ms[1:]
+    step_ms = statistics.median(later)
+    # model FLOPs per token: 6 per parameter in a product (all but the
+    # embedding table, a gather), plus attention's 12 * L * H * hd * S
+    # (PaLM's count: QK^T and PV, forward and backward, unmasked)
+    n_matmul = n_params - model["embed"]["table"].numel()
+    attn = 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * seq
+    flops = (6 * n_matmul + attn) * tokens
+    out.update({
+        "history": history, "first_loss_vs_forward": {
+            "step1": history[0]["loss"], "forward": fwd_loss, "diff": diff,
+            "atol": TRAIN_BF16_ATOL},
+        "step_ms": {"median": step_ms, "min": min(later), "max": max(later),
+                    "first": ms[0], "all": ms},
+        "tokens_per_step": tokens, "tokens_per_s": tokens / step_ms * 1e3,
+        "model_flops_per_step": flops,
+        "mfu": flops / (step_ms / 1e3) / BF16_OPS_PER_S})
+
+    # one profiled step on the same model, a fresh optimizer state
+    opt = init_opt_state(model, "int8_ef")
+    later_batch = make_batch(cfg, ShapeConfig("cli", seq, batch, "train"),
+                             steps, device=dev)
+    ocfg = OptimizerConfig(learning_rate=1e-3, warmup_steps=1,
+                           total_steps=steps)
+    out["profiled_step"] = profile_once(torch, lambda: inner(
+        model, opt, later_batch, cfg, ocfg, accum))
+    del model, opt, later_batch, params
+    torch.cuda.empty_cache()
+    p = out["profiled_step"]
+    print(f"  {TRAIN_ARCH} at full width: {n_params:,} parameters (float32 "
+          f"master copy, bf16 activations, '{cfg.remat_policy}' remat), "
+          f"drawn on the card in {out['init_s']:.2f} s; the launcher's "
+          f"{steps} steps of {batch} x {seq} tokens ({accum} microbatches): "
+          "losses " + ", ".join(f"{h['loss']:.4f}" for h in history)
+          + "; gradient norms " + ", ".join(f"{h['grad_norm']:.3f}"
+                                            for h in history))
+    print(f"  step 1's loss {history[0]['loss']:.6f} vs a no_grad forward's "
+          f"{fwd_loss:.6f} (|diff| {diff:.2e}, tolerance {TRAIN_BF16_ATOL});"
+          f" 'full' remat vs 'none' at seq {TRAIN_REMAT_SEQ}: largest leaf "
+          f"diff {share:.2e} of its largest gradient"
+          + (" (bit-equal)" if bit_equal else ""))
+    print(f"  times on {card}: a step {step_ms:.1f} ms (CUDA events, median "
+          f"of steps 2-{steps}) [min {min(later):.1f}, max {max(later):.1f}];"
+          f" step 1 {ms[0]:.1f} ms; {out['tokens_per_s']:,.0f} tokens/s; "
+          f"model-FLOPs share {100 * out['mfu']:.2f} % of 989 TFLOP/s bf16 "
+          f"({flops:.3e} FLOP a step); torch.cuda.max_memory_allocated "
+          f"{out['max_memory_gb']:.2f} GB")
+    print(f"  one train step under torch.profiler on {card}: "
+          + (f"{p['kernels']} kernels, {p['device_busy_ms']:.1f} ms of "
+             f"device time in {p['wall_ms']:.1f} ms of wall (device busy "
+             f"{100 * p['device_share']:.1f} %)" + "".join(
+                 f"; {r['launches']} x {kernel_label(r['kernel'])} "
+                 f"{r['us'] / 1e3:.1f} ms" for r in p["top_kernels"])
+             if p["kernels"] else
+             "device time not measured (the profiler recorded no device "
+             "events)"))
+
+    # (c) the fault drill at smoke size, on the card
+    drill = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "6",
+             "--ckpt-every", "3", "--device", str(dev)]
+    with tempfile.TemporaryDirectory() as tmp:
+        crashed, whole = os.path.join(tmp, "drill"), os.path.join(tmp, "ref")
+        try:
+            train_launch.run(drill + ["--ckpt-dir", crashed, "--fail-at",
+                                      "3"])
+        except RuntimeError as e:
+            if str(e) != "injected failure at step 3":
+                raise
+        else:
+            check(False, "--fail-at 3 did not fail")
+        resumed = train_launch.run(drill + ["--ckpt-dir", crashed,
+                                            "--resume"])
+        ref = train_launch.run(drill + ["--ckpt-dir", whole])
+        like = dict(zip(("params", "opt"), make_train_state(
+            get_smoke_config(TRAIN_ARCH), 1, device=dev)))
+        a, sa, _ = ckpt.restore(crashed, like, device=dev)
+        b, sb, _ = ckpt.restore(whole, like, device=dev)
+        check(sa == sb == 6 and resumed == ref and all(
+            torch.equal(x, y) for x, y in zip(a["params"].parameters(),
+                                              b["params"].parameters())),
+            "the resumed run's parameters differ from the uninterrupted "
+            "run's")
+    out["fault_drill"] = {"final_loss": resumed["final_loss"],
+                          "bit_equal": True}
+    print(f"  the fault drill on the card ({TRAIN_ARCH} smoke, --fail-at 3 "
+          "then --resume, 6 steps): the final parameters bit-equal to an "
+          f"uninterrupted run's (final loss {resumed['final_loss']:.4f})")
+
+    # (d) the example in its own process
+    t0 = time.perf_counter()
+    ex = subprocess.run([sys.executable,
+                         str(ROOT / "examples" / "torch_train_lm.py"),
+                         "--large"],
+                        capture_output=True, text=True, timeout=600,
+                        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)})
+    check(ex.returncode == 0 and ex.stdout.rstrip().endswith(
+        "train_lm: OK"), f"torch_train_lm.py --large exited "
+        f"{ex.returncode}: {ex.stdout[-2000:]} {ex.stderr[-2000:]}")
+    out["example_s"] = time.perf_counter() - t0
+    final = [line for line in ex.stdout.splitlines()
+             if line.startswith("final loss")]
+    out["example_final"] = final[-1] if final else None
+    print(f"  examples/torch_train_lm.py --large on the card: train_lm: OK "
+          f"({out['example_final']}; {out['example_s']:.2f} s)")
     return out
 
 
@@ -2421,6 +2761,15 @@ def main() -> int:
     lm_stats["phase_s"] = time.perf_counter() - t_lm
     print(f"  LM phase took {lm_stats['phase_s']:.2f} s")
 
+    # --------------------------------------------------------------- 3j --
+    print(f"LM training: the ten smoke configs' train step card against "
+          f"CPU; {TRAIN_ARCH} at its full published width through the "
+          "launcher; the fault drill; the training example")
+    t_train = time.perf_counter()
+    train_stats = train_phase(np, torch, dev, card)
+    train_stats["phase_s"] = time.perf_counter() - t_train
+    print(f"  training phase took {train_stats['phase_s']:.2f} s")
+
     # ---------------------------------------------------------------- 4 --
     print(f"times on {card} (CUDA events, medians of CUDA-graph replays; "
           "'flushed': one call after a 256 MiB write evicts the L2, "
@@ -2778,6 +3127,7 @@ def main() -> int:
                       "sharded": {k: v for k, v in sharded_stats.items()
                                   if k != "k2_row"},
                       "lm": lm_stats,
+                      "train": train_stats,
                       "k2_launches_by_step": {
                           step: {f"{p},B={b}": n for (p, b), n in c.items()}
                           for step, c in k2_steps.items()},

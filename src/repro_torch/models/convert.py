@@ -4,7 +4,9 @@
 arrays — ``repro.models.init_params(cfg, key)`` through ``np.asarray``
 leaf by leaf, layer stacks included — and returns the port's
 :class:`~repro_torch.models.model.LanguageModel` with the same values, each
-stacked leaf split over its ``nn.ModuleList``.  :func:`cache_from_numpy`
+stacked leaf split over its ``nn.ModuleList``; :func:`params_to_numpy`
+is its inverse (any tree of the model's structure: the parameters, their
+gradients' holder, the optimizer's moments).  :func:`cache_from_numpy`
 and :func:`cache_to_numpy` carry a decode cache (the dict of
 ``repro.models.init_cache`` / ``prefill`` / ``decode_step``) each way.
 numpy has no native bfloat16: a bfloat16 array (numpy's ``ml_dtypes``
@@ -21,10 +23,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models.layers import build_tree
+from torch import nn
+
+from repro_torch.models.layers import build_tree, stacked_leaves
 from repro_torch.models.model import LanguageModel, param_specs
 
-__all__ = ["params_from_numpy", "cache_from_numpy", "cache_to_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy", "cache_from_numpy",
+           "cache_to_numpy"]
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -36,10 +41,17 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy (bfloat16 as float32, which holds it exactly)."""
+    t = t.detach().to("cpu", copy=True)
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def params_from_numpy(cfg: ModelConfig, tree: Mapping, *,
-                      device: str | torch.device | None = None
-                      ) -> LanguageModel:
-    """The port's model holding the values of the JAX-layout ``tree``."""
+                      device: str | torch.device | None = None,
+                      trainable: bool = False) -> LanguageModel:
+    """The port's model holding the values of the JAX-layout ``tree``
+    (with ``requires_grad`` on every leaf when ``trainable``)."""
     dev = resolve_device(device)
 
     def make(spec, path):
@@ -53,7 +65,24 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping, *,
                              f"the config gives {spec.stacked_shape}")
         return _tensor(a[index] if index else a, dev)
 
-    return build_tree(param_specs(cfg), make, into=LanguageModel(cfg))
+    return build_tree(param_specs(cfg), make, into=LanguageModel(cfg),
+                      requires_grad=trainable)
+
+
+def params_to_numpy(tree: nn.Module) -> dict:
+    """The JAX-layout tree (layer stacks as leading dimensions) of a
+    model-shaped module tree's leaves as numpy arrays (bfloat16 as
+    float32), e.g. ``jax.tree.map(jnp.asarray, params_to_numpy(model))``
+    is a parameter tree of the JAX package."""
+    out: dict = {}
+    for keys, stack, tensors in stacked_leaves(tree):
+        arrays = [_numpy(t) for t in tensors]
+        node = out
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = (np.stack(arrays).reshape(stack + arrays[0].shape)
+                          if stack else arrays[0])
+    return out
 
 
 def cache_from_numpy(tree: Mapping, *,
@@ -66,10 +95,4 @@ def cache_from_numpy(tree: Mapping, *,
 def cache_to_numpy(cache: Mapping) -> dict:
     """Copies of the cache's tensors as numpy arrays (bfloat16 as
     float32); a later decode step does not change them."""
-    out = {}
-    for k, v in cache.items():
-        t = v.detach().to("cpu", copy=True)
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        out[k] = t.numpy()
-    return out
+    return {k: _numpy(v) for k, v in cache.items()}

@@ -32,7 +32,8 @@ from torch import nn
 from repro_torch.kernels.common import resolve_device
 
 __all__ = ["ParamSpec", "StackSpec", "ParamModule", "stack_specs",
-           "build_tree", "abstract_tree", "logical_axes_tree",
+           "build_tree", "map_tree", "stacked_leaves", "abstract_tree",
+           "logical_axes_tree",
            "rmsnorm_specs", "rmsnorm", "rope_frequencies", "apply_rope",
            "mlp_specs", "mlp", "embedding_specs", "embed", "lm_head_specs",
            "lm_head"]
@@ -100,26 +101,78 @@ class ParamModule(nn.Module):
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
 
+    def empty_like(self) -> "ParamModule":
+        """A module of this class holding nothing yet (see
+        :func:`map_tree`)."""
+        return type(self)()
+
 
 def build_tree(specs, make, into: ParamModule | None = None,
-               path: tuple = ()) -> nn.Module:
+               path: tuple = (), requires_grad: bool = False) -> nn.Module:
     """The module tree of ``specs`` (filled into ``into`` when given).
     ``make(spec, path)`` gives each leaf's tensor for one layer; ``path``
     holds the dict keys and the layer indices down to the leaf, e.g.
     ``("layers", 3, "attn", "wq")``.  Leaves are made in sorted-key order,
-    a stack layer by layer."""
+    a stack layer by layer; they are trainable only when
+    ``requires_grad`` says so."""
     if isinstance(specs, StackSpec):
-        return nn.ModuleList([build_tree(specs.inner, make, path=path + (i,))
+        return nn.ModuleList([build_tree(specs.inner, make, path=path + (i,),
+                                         requires_grad=requires_grad)
                               for i in range(specs.n)])
     mod = ParamModule() if into is None else into
     for name in sorted(specs):
         sub = specs[name]
         if isinstance(sub, ParamSpec):
             mod.register_parameter(name, nn.Parameter(
-                make(sub, path + (name,)), requires_grad=False))
+                make(sub, path + (name,)), requires_grad=requires_grad))
         else:
-            mod.add_module(name, build_tree(sub, make, path=path + (name,)))
+            mod.add_module(name, build_tree(sub, make, path=path + (name,),
+                                            requires_grad=requires_grad))
     return mod
+
+
+def map_tree(tree: nn.Module, fn, requires_grad: bool | None = None,
+             path: tuple = ()) -> nn.Module:
+    """A new tree of ``tree``'s structure and classes whose leaf at
+    ``path`` (as :func:`build_tree` spells it) is ``fn(path, leaf)``;
+    trainable as the old leaf unless ``requires_grad`` says otherwise."""
+    if isinstance(tree, nn.ModuleList):
+        return nn.ModuleList([map_tree(m, fn, requires_grad, path + (i,))
+                              for i, m in enumerate(tree)])
+    new = tree.empty_like()
+    for name, p in tree.named_parameters(recurse=False):
+        grad = p.requires_grad if requires_grad is None else requires_grad
+        new.register_parameter(name, nn.Parameter(fn(path + (name,), p),
+                                                  requires_grad=grad))
+    for name, m in tree.named_children():
+        new.add_module(name, map_tree(m, fn, requires_grad, path + (name,)))
+    return new
+
+
+def stacked_leaves(tree: nn.Module) -> list:
+    """The leaves of ``tree`` in the JAX layout: one
+    ``(keys, stack, tensors)`` per JAX leaf, in JAX's order (sorted dict
+    keys).  ``keys`` are the dict keys down to the leaf, ``stack`` the
+    stacking dimensions in front of its shape and ``tensors`` its layers'
+    tensors in row-major order of ``stack``."""
+    if isinstance(tree, nn.ModuleList):
+        per = [stacked_leaves(m) for m in tree]
+        if any([k for k, _, _ in p] != [k for k, _, _ in per[0]]
+               for p in per):
+            raise ValueError("the layers of a stack differ in structure")
+        return [(keys, (len(per),) + stack,
+                 [t for p in per for t in p[i][2]])
+                for i, (keys, stack, _) in enumerate(per[0])]
+    out = []
+    children = dict(tree.named_children())
+    params = dict(tree.named_parameters(recurse=False))
+    for name in sorted(set(children) | set(params)):
+        if name in params:
+            out.append(((name,), (), [params[name]]))
+        else:
+            out.extend(((name,) + keys, stack, ts)
+                       for keys, stack, ts in stacked_leaves(children[name]))
+    return out
 
 
 def abstract_tree(specs, dtype: torch.dtype = torch.float32):

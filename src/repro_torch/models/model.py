@@ -92,6 +92,9 @@ class LanguageModel(ParamModule):
         super().__init__()
         self.cfg = cfg
 
+    def empty_like(self) -> "LanguageModel":
+        return LanguageModel(self.cfg)
+
     @property
     def device(self) -> torch.device:
         return self.final_ln.scale.device
@@ -101,12 +104,17 @@ class LanguageModel(ParamModule):
 
 
 def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0,
-                device: str | torch.device | None = None) -> LanguageModel:
+                device: str | torch.device | None = None, *,
+                trainable: bool = False) -> LanguageModel:
     """Random parameters drawn on ``device`` (the card unless the caller
     asks for the CPU) from ``seed`` or a ``torch.Generator`` on that
     device, one layer's leaf at a time: nothing is made on the host, and
     no stack is ever held in float32.  The distribution is the JAX
-    package's (std = scale / sqrt(stacked fan-in)); the draws are not."""
+    package's (std = scale / sqrt(stacked fan-in)); the draws are not.
+
+    ``trainable`` gives the training master copy, as the JAX
+    ``make_train_state`` makes it: each leaf is the draw rounded to
+    ``cfg.dtype`` and then held in float32, with ``requires_grad``."""
     dev = resolve_device(device)
     if isinstance(seed, torch.Generator):
         gen = seed
@@ -116,9 +124,13 @@ def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0,
     else:
         gen = torch.Generator(device=dev).manual_seed(int(seed))
     dtype = DTYPES[cfg.dtype]
-    return build_tree(param_specs(cfg),
-                      lambda spec, path: spec.materialize(gen, dtype, dev),
-                      into=LanguageModel(cfg))
+
+    def make(spec, path):
+        leaf = spec.materialize(gen, dtype, dev)
+        return leaf.float() if trainable else leaf
+
+    return build_tree(param_specs(cfg), make, into=LanguageModel(cfg),
+                      requires_grad=trainable)
 
 
 def abstract_params(cfg: ModelConfig) -> dict:
@@ -152,41 +164,58 @@ def _vision_kv(params, batch, cfg: ModelConfig):
 
 
 def forward(params, batch, cfg: ModelConfig):
-    """Returns (logits, aux) — aux carries MoE losses (zeros otherwise)."""
+    """Returns (logits, aux) — aux carries MoE losses (zeros otherwise).
+    While autograd records, each block (each group of blocks for the
+    vlm / hybrid families, as the JAX package wraps its scan bodies) runs
+    under ``cfg.remat_policy`` (:func:`transformer.remat_wrap`)."""
     x, positions = _embed_inputs(params, batch, cfg)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"aux_loss": zero, "dropped_frac": zero}
 
+    def remat(fn):
+        return tfm.remat_wrap(fn, cfg.remat_policy)
+
     if cfg.family in ("dense", "audio"):
+        block = remat(tfm.dense_block)
         for layer in params["layers"]:
-            x = tfm.dense_block(layer, x, cfg, positions)
+            x = block(layer, x, cfg, positions)
 
     elif cfg.family == "moe":
+        block = remat(tfm.moe_block)
         aux_sum, dropped = zero, []
         for layer in params["layers"]:
-            x, a = tfm.moe_block(layer, x, cfg, positions)
+            x, a = block(layer, x, cfg, positions)
             aux_sum = aux_sum + a["aux_loss"]
             dropped.append(a["dropped_frac"])
         aux = {"aux_loss": aux_sum,
                "dropped_frac": torch.stack(dropped).mean()}
 
     elif cfg.family == "ssm":
+        block = remat(tfm.ssm_block)
         for layer in params["layers"]:
-            x = tfm.ssm_block(layer, x, cfg)
+            x = block(layer, x, cfg)
 
     elif cfg.family == "hybrid":
+        def hybrid_group(layers, shared, h, x0):
+            for layer in layers:
+                h = tfm.ssm_block(layer, h, cfg)
+            return tfm.shared_block(shared, h, x0, cfg, positions)
+
+        group = remat(hybrid_group)
         x0 = x
-        for group in params["layers"]:
-            for layer in group:
-                x = tfm.ssm_block(layer, x, cfg)
-            x = tfm.shared_block(params["shared"], x, x0, cfg, positions)
+        for layers in params["layers"]:
+            x = group(layers, params["shared"], x, x0)
 
     elif cfg.family == "vlm":
+        def vlm_group(layers, cross, h, vision_kv):
+            for layer in layers:
+                h = tfm.dense_block(layer, h, cfg, positions)
+            return tfm.cross_block(cross, h, vision_kv, cfg)
+
+        group = remat(vlm_group)
         vision_kv = _vision_kv(params, batch, cfg)
-        for group, cross in zip(params["layers"], params["cross"]):
-            for layer in group:
-                x = tfm.dense_block(layer, x, cfg, positions)
-            x = tfm.cross_block(cross, x, vision_kv, cfg)
+        for layers, cross in zip(params["layers"], params["cross"]):
+            x = group(layers, cross, x, vision_kv)
     else:
         raise ValueError(cfg.family)
 

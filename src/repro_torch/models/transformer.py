@@ -1,15 +1,22 @@
 """Decoder blocks per family, for the prefill/train path and for decode.
 
-The PyTorch counterpart of ``repro.models.transformer`` (its
-``remat_wrap`` belongs to training and is not ported yet).  The decode
+The PyTorch counterpart of ``repro.models.transformer``.  The decode
 blocks write the block's K / V into the cache views they are given (see
 :func:`repro_torch.models.attention.decode_attention`).
+:func:`remat_wrap` is the training path's rematerialisation: activation
+checkpointing around a block (or a group of blocks) while autograd
+records.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -21,7 +28,8 @@ from repro_torch.models.layers import (ParamSpec, mlp, mlp_specs, rmsnorm,
 __all__ = ["block_specs", "cross_block_specs", "shared_block_specs",
            "dense_block", "moe_block", "ssm_block", "cross_block",
            "shared_block", "dense_block_decode", "moe_block_decode",
-           "ssm_block_decode", "cross_block_decode", "shared_block_decode"]
+           "ssm_block_decode", "cross_block_decode", "shared_block_decode",
+           "remat_wrap"]
 
 
 # --------------------------------------------------------------------------- #
@@ -171,3 +179,57 @@ def shared_block_decode(params, x, x0, ck, cv, clen, cfg: ModelConfig):
     h = h + y
     h = h + mlp(params["mlp"], rmsnorm(params["ln2"], h, cfg.norm_eps))
     return x + torch.tanh(params["gate"].to(x.dtype)) * h, ck, cv
+
+
+# --------------------------------------------------------------------------- #
+# Remat policy                                                                #
+# --------------------------------------------------------------------------- #
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of matrix
+    products without a batch dimension (``x @ W``, and the projection
+    einsums, which PyTorch runs as a ``bmm`` over a batch of one);
+    recompute the rest."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _records(args) -> bool:
+    """Whether autograd records a call on ``args``: grad mode on and a
+    tensor, or a parameter of a module, among them that requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    for a in args:
+        if isinstance(a, torch.Tensor) and a.requires_grad:
+            return True
+        if isinstance(a, nn.Module) and any(
+                p.requires_grad for p in a.parameters()):
+            return True
+    return False
+
+
+def remat_wrap(fn, policy: str):
+    """``fn`` under the remat policy: ``"none"`` keeps every activation;
+    ``"full"`` keeps only the call's inputs and recomputes the rest in
+    the backward pass; ``"dots"`` also keeps the outputs of the products
+    with no batch dimension.  A call autograd does not record (serving,
+    ``torch.no_grad``) runs ``fn`` as it is."""
+    if policy == "none":
+        return fn
+    if policy == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _dots_policy)
+    elif policy == "full":
+        context_fn = noop_context_fn
+    else:
+        raise ValueError(f"unknown remat policy {policy!r}")
+
+    @functools.wraps(fn)
+    def wrapped(*args):
+        if not _records(args):
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=context_fn)
+    return wrapped

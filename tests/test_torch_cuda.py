@@ -6,8 +6,9 @@ launch counts, ``ops.pagerank_iteration``, one dynamic update per
 patchable tier, the sharded mesh tiers on a mesh of the card against the
 same calls on a CPU mesh (K2 at their shard shapes against its plain
 version), the fabric simulator (hop mode, the full-width hop-mode matvec
-and the tiled schedule) against its CPU run, and the LM stack's ten smoke
-models and token server against the CPU.  K2 and K3 run at every batch
+and the tiled schedule) against its CPU run, the LM stack's token server
+and a smoke train step against the CPU, and the training path's
+defaults.  K2 and K3 run at every batch
 width of their kernels,
 and a NaN in one query's x is held to that query.  K1 and K4 run at the
 edges of their row-streaming core (one CTA's rows, fewer rows than SMs,
@@ -913,3 +914,77 @@ def test_lm_serving_defaults_to_the_card(cuda):
     prompt = np.array([3, 1, 4, 1, 5], np.int32)
     card_out = ServeEngine(cfg, card).generate(prompt, 12)
     assert card_out == ServeEngine(cfg, host).generate(prompt, 12)
+
+
+# --------------------------------------------------------------------------- #
+# the LM training path (no kernel of its own): the card by default, and a    #
+# smoke train step on the card against the CPU.  chip_smoke.py's phase 3j     #
+# holds all ten smoke configs and trains internlm2-1.8b at full width         #
+# --------------------------------------------------------------------------- #
+def test_lm_training_defaults_to_the_card(cuda, tmp_path):
+    """make_train_state, make_batch, the data iterator, restore and the
+    launcher default to the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataIterator, make_batch
+    from repro_torch.launch import train as lm_train
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import make_train_state
+    cfg = get_smoke_config("internlm2-1.8b")
+    params, opt = make_train_state(cfg, 0)
+    tensors = (list(params.parameters()) + list(opt.m.parameters())
+               + list(opt.ef.parameters()) + [opt.step])
+    assert all(t.device.type == "cuda" for t in tensors)
+    shape = ShapeConfig("t", 8, 2, "train")
+    assert make_batch(cfg, shape, 0)["tokens"].device.type == "cuda"
+    assert next(DataIterator(cfg, shape))["tokens"].device.type == "cuda"
+    ckpt.save(str(tmp_path), 1, {"opt": opt})
+    back, _, _ = ckpt.restore(str(tmp_path), {"opt": opt})
+    assert back["opt"].step.device.type == "cuda"
+    res = lm_train.run(["--arch", "internlm2-1.8b", "--smoke", "--steps",
+                        "2"])
+    assert np.isfinite(res["final_loss"])
+    host, _ = make_train_state(cfg, 0, device="cpu")
+    with pytest.raises(ValueError):       # a CPU model, the card's flags
+        lm_train.run(["--arch", "internlm2-1.8b", "--smoke"], model=host)
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "olmoe-1b-7b",
+                                  "zamba2-2.7b"])
+def test_lm_train_step_on_card_matches_cpu(cuda, arch):
+    """One train_step of a smoke config from the same weights and batch:
+    the loss, the gradient norm and every gradient leaf on the card within
+    the CPU-vs-JAX tolerances of tests/train_parity.py (TF32 off), on
+    tests/train_batch.py's fixed-seed batch."""
+    from train_batch import batch as fixed_batch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.train import (OptimizerConfig, init_opt_state, loss_fn,
+                                   make_train_state, train_step)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_smoke_config(arch)
+        host, _ = make_train_state(cfg, 0, device="cpu")
+        card, _ = make_train_state(cfg, 0, device="cpu")
+        card = card.to("cuda")
+        batch = fixed_batch(cfg)
+        got = {}
+        for name, model in (("cpu", host), ("cuda", card)):
+            b = {k: torch.from_numpy(v).to(name) for k, v in batch.items()}
+            total, _ = loss_fn(model, b, cfg)
+            total.backward()
+            grads = [p.grad.cpu().numpy() for p in model.parameters()]
+            _, _, m = train_step(model, init_opt_state(model), b, cfg,
+                                 OptimizerConfig(warmup_steps=2,
+                                                 total_steps=10))
+            got[name] = (float(m["loss"]), float(m["grad_norm"]), grads)
+        (hl, hn, hg), (dl, dn, dg) = got["cpu"], got["cuda"]
+        assert dl == pytest.approx(hl, rel=1e-5)
+        assert dn == pytest.approx(hn, rel=1e-4)
+        for a, b in zip(hg, dg, strict=True):
+            assert np.all(np.isfinite(b))
+            np.testing.assert_allclose(b, a, rtol=0, atol=1e-3 * max(
+                float(np.abs(a).max()), 1e-30))
+        assert all(p.grad is None for p in card.parameters())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -50,6 +50,7 @@ TOL = {"dense": dict(rtol=1e-5, atol=1e-7), "ell": dict(rtol=1e-4,
        "dense_sharded": dict(rtol=1e-5, atol=1e-7),
        "ell_sharded": dict(rtol=1e-5, atol=1e-7)}
 SRC = Path(__file__).resolve().parents[1] / "src"
+EXAMPLES = SRC.parent / "examples"
 
 
 @pytest.fixture(scope="module")
@@ -429,7 +430,8 @@ def test_launcher_fails_when_ell_disagrees(monkeypatch):
 
 
 def test_import_hygiene_subprocess():
-    """The port imports neither jax nor the JAX package when it runs."""
+    """The port imports neither jax, the JAX package nor ml_dtypes when it
+    runs (the training path and its example included)."""
     code = (
         "import sys, numpy as np\n"
         "import repro_torch\n"
@@ -539,8 +541,37 @@ def test_import_hygiene_subprocess():
         "cfg = get_smoke_config('llama3-8b')\n"
         "se = ServeEngine(cfg, M.init_params(cfg, 0, device='cpu'))\n"
         "se.serve([Request(0, np.arange(1, 5, dtype=np.int32), 2)])\n"
+        "import tempfile\n"
+        "from repro_torch.train import (OptimizerConfig, checkpoint,\n"
+        "    compression, fault, make_train_state, train_step)\n"
+        "from repro_torch.data import DataIterator, input_specs\n"
+        "from repro_torch.configs import ShapeConfig\n"
+        "from repro_torch.launch import train as lm_train\n"
+        "from repro_torch.models.convert import params_to_numpy\n"
+        "from repro_torch.models.transformer import remat_wrap\n"
+        "import dataclasses\n"
+        "for arch in ('internlm2-1.8b', 'olmoe-1b-7b', 'zamba2-2.7b',\n"
+        "             'llama-3.2-vision-90b', 'musicgen-large'):\n"
+        "    cfg = dataclasses.replace(get_smoke_config(arch),\n"
+        "                              remat_policy='dots')\n"
+        "    p, o = make_train_state(cfg, 0, device='cpu')\n"
+        "    it = DataIterator(cfg, ShapeConfig('t', 8, 2, 'train'),\n"
+        "                      device='cpu')\n"
+        "    p, o, m = train_step(p, o, next(it), cfg, OptimizerConfig(\n"
+        "        compression='int8_ef'), accum_steps=2)\n"
+        "    input_specs(get_config(arch), 'train_4k')\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    checkpoint.save(d, 1, {'params': p, 'opt': o})\n"
+        "    checkpoint.restore(d, {'params': p, 'opt': o}, device='cpu')\n"
+        "    params_to_numpy(p)\n"
+        "    lm_train.run(['--arch', 'internlm2-1.8b', '--smoke', '--steps',\n"
+        "                  '2', '--device', 'cpu', '--ckpt-dir', d])\n"
+        "fault.assign_shards(4, [0, 1])\n"
+        "import runpy\n"
+        f"runpy.run_path({str(EXAMPLES / 'torch_train_lm.py')!r})\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')\n"
+        "             or m == 'ml_dtypes')\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
