@@ -125,6 +125,28 @@ result line):
    ``torch.profiler``; the launcher's fault drill at smoke size
    (``--fail-at 3``, then ``--resume``) bit-equal to an uninterrupted run;
    and ``examples/torch_train_lm.py --large`` in its own process;
+3k. the LM stack on the mesh (no kernel of the port either: the JAX
+   ``moe_ep`` and the sharding rules are ``jnp`` and ``shard_map``), every
+   mesh position on the one card: ``moe_ep`` of the olmoe and granite-moe
+   smoke configs (5 experts padded to 8) on 2 x 4 and 1 x 4 meshes under
+   the training and the inference rules against the same meshes on the
+   CPU (output, aux loss, dropped fraction, every gradient; a repeat
+   bit-equal or not); olmoe-1b-7b at its full published width and depth
+   (6,919,094,272 parameters, bf16, random weights from seed 0) served the
+   JAX serve launcher's traffic under ``use_mesh`` of a 1 x 4 mesh with
+   the inference rules and without a mesh: each MoE layer of every
+   prompt's prefill and first decode step on its own activations within
+   one bf16 step of the no-mesh output, the logits on 1 x 4, 1 x 2 and no
+   mesh and the step at which the greedy tokens part (reported, not
+   gated), the decode step's time (CUDA events)
+   and one profiled step on the mesh and without, its collectives and
+   peak memory; one olmoe MoE layer at full width (2 x 4096 tokens,
+   float32 master weights, capacity factor 8) on 2 x 4 under the training
+   rules against ``moe_reference``, x in float32 and in bf16; the
+   2-layer full-width olmoe trainer (1,045,176,320 parameters) on 2 x 4
+   with the default rules, 3 steps of 2 x 4096 tokens (losses, step
+   times, peak memory, collectives per step); and the train launcher at
+   smoke size on 4 positions of the card against 4 of the CPU;
 4. times on the card (CUDA events, medians) beside each kernel's bound:
    the kernel, its plain version and the library call each with the L2
    cache flushed before the call, and the kernel back to back as well
@@ -299,6 +321,44 @@ TRAIN_REMAT_SEQ = 512
 TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, TRAIN_GRAD_SHARE = 1e-5, 1e-4, 1e-3
 TRAIN_BF16_ATOL = 0.1
 TRAIN_SMOKE_SHAPE = (2, 16)
+# phase 3k: the LM stack on the mesh, every position on the one card.  The
+# MoE smoke configs' moe_ep card mesh against CPU mesh within the
+# CPU-vs-JAX tolerances of tests/test_torch_moe_ep.py (the output beyond
+# rtol MESH_Y_RTOL by at most MESH_Y_ATOL_SHARE of its largest value, the
+# aux loss within MESH_AUX_RTOL, each gradient leaf within MESH_GRAD_SHARE
+# of its largest); olmoe-1b-7b served at full width on MESH_SERVE_SHAPE
+# against no mesh, each MoE layer on the model's own activations within
+# one bf16 step (MESH_LAYER_TOL["bfloat16"]); one
+# full-width MoE layer of MESH_LAYER_SHAPE tokens on 2 x 4 against
+# moe_reference (MESH_LAYER_TOL); the full-width trainer at MESH_TRAIN_LAYERS
+# layers; the launcher's loss lines on 4 positions of the card against 4
+# of the CPU as tests/test_torch_train_launch.py holds them to JAX
+MESH_ARCH, MESH_MAX_LEN = "olmoe-1b-7b", 128
+MESH_SMOKE_ARCHS = ("olmoe-1b-7b", "granite-moe-3b-a800m")
+MESH_SMOKE_MESHES = ((2, 4), (1, 4))
+MESH_SMOKE_RULES = ("DEFAULT_RULES", "INFERENCE_RULES")
+MESH_Y_RTOL, MESH_Y_ATOL_SHARE = 1e-5, 1e-6
+MESH_AUX_RTOL, MESH_GRAD_SHARE = 1e-6, 1e-5
+MESH_SERVE_SHAPE, MESH_TIMED_DECODES = (1, 4), 20
+MESH_SERVE_SHAPES = (MESH_SERVE_SHAPE, (1, 2))
+MESH_LAYER_SHAPE = (2, 4096)
+# the full-width layer against moe_reference.  x in float32: the CPU-vs-JAX
+# output tolerance and phase 3j's gradient gate (TRAIN_GRAD_SHARE, 1e-3
+# of each leaf's largest value).  x in bf16: the output within one bf16 step (2^-7); the weights'
+# gradients too, since each data shard's partial product is rounded to
+# bf16 before the sum over shards (on the CPU at smoke size: 3.4e-3 of
+# the largest); x's gradient, summed in bf16 over the model positions,
+# within four steps (2^-5; 1.0e-2 on the CPU at smoke size)
+MESH_LAYER_TOL = {
+    "float32": dict(dtype="float32", y_rtol=1e-5, y_atol_share=1e-6,
+                    w_share=1e-3, x_share=1e-3),
+    "bfloat16": dict(dtype="bfloat16", y_rtol=2.0 ** -7, y_atol_share=1e-5,
+                     w_share=2.0 ** -7, x_share=2.0 ** -5)}
+MESH_LAYER_AUX_RTOL = 1e-5
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 3
+MESH_LAUNCH_SAME_LOSS, MESH_LAUNCH_EARLY_LOSS = 1.5e-4, 1e-3
+LOSS_LINE = re.compile(
+    r"^step (?:\d+): loss=([\d.]+) gnorm=([\d.]+) lr=([\d.e+-]+)")
 
 
 # the storage types of K3's instantiations, as the compiler mangles them
@@ -1280,6 +1340,23 @@ def profile_once(torch, fn) -> dict:
                             for k, us in by_name.most_common(5)]}
 
 
+def event_times(torch, fn, n: int) -> dict:
+    """``fn`` called ``n`` times, each call between two CUDA events (the
+    host's issue time included): median, smallest and largest ms."""
+    pairs = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    times = [s.elapsed_time(e) for s, e in pairs]
+    return {"median_ms": statistics.median(times), "min_ms": min(times),
+            "max_ms": max(times)}
+
+
 def lm_phase(np, torch, dev, card) -> dict:
     """Phase 3i: the LM stack's token-serving path.  (a) llama3-8b at its
     full published width in bf16, drawn on the card from a seeded
@@ -1410,30 +1487,16 @@ def lm_phase(np, torch, dev, card) -> dict:
 
     # (c) times: prefill of request 0's prompt, then decode steps at one
     # slot, each between two CUDA events (the host's issue time included)
-    def event_times(fn, n):
-        pairs = []
-        for _ in range(n):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            pairs.append((start, end))
-        torch.cuda.synchronize()
-        times = [s.elapsed_time(e) for s, e in pairs]
-        return {"median_ms": statistics.median(times), "min_ms": min(times),
-                "max_ms": max(times)}
-
     out["prefill"] = event_times(
-        lambda: M.prefill(model, {"tokens": prompt[None]}, cfg, LLM_MAX_LEN),
-        LLM_TIMED_PREFILLS)
+        torch, lambda: M.prefill(model, {"tokens": prompt[None]}, cfg,
+                                 LLM_MAX_LEN), LLM_TIMED_PREFILLS)
     out["prefill"]["tokens"] = len(r.prompt)
     _, cache = M.prefill(model, {"tokens": prompt[None]}, cfg, LLM_MAX_LEN)
     tok = torch.tensor([[r.output[0]]], device=dev)
     for _ in range(3):                                   # warm-up
         M.decode_step(model, {"tokens": tok}, cache, cfg)
     out["decode"] = event_times(
-        lambda: M.decode_step(model, {"tokens": tok}, cache, cfg),
+        torch, lambda: M.decode_step(model, {"tokens": tok}, cache, cfg),
         LLM_TIMED_DECODES)
     out["profiled_step"] = profile_once(
         torch, lambda: M.decode_step(model, {"tokens": tok}, cache, cfg))
@@ -1805,6 +1868,494 @@ def train_phase(np, torch, dev, card) -> dict:
     out["example_final"] = final[-1] if final else None
     print(f"  examples/torch_train_lm.py --large on the card: train_lm: OK "
           f"({out['example_final']}; {out['example_s']:.2f} s)")
+    return out
+
+
+def moe_smoke_on_mesh(np, torch, dev, arch: str, shape, rules: str) -> dict:
+    """moe_ep of one MoE smoke config (weights and an (8, 16, D) x from
+    numpy seed 0) on a mesh whose every position is the card, against the
+    same mesh on the CPU: the output, the aux loss, the dropped fraction
+    and the gradients of sum(y**2) + aux w.r.t. every weight and x, within
+    the CPU-vs-JAX tolerances of tests/test_torch_moe_ep.py; a repeated
+    forward and backward on the card, bit-equal or not."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe, moe_ep
+    from repro_torch.sharding import partition as P_
+
+    cfg = get_smoke_config(arch)
+    rng = np.random.default_rng(0)
+    params = {k: (rng.standard_normal(s.shape) * s.std()).astype(np.float32)
+              for k, s in moe.moe_specs(cfg).items()}
+    x = rng.standard_normal((8, 16, cfg.d_model)).astype(np.float32)
+    got = {}
+    for name, where in (("cpu", torch.device("cpu")), ("card", dev),
+                        ("again", dev)):
+        mesh = make_mesh(shape, ("data", "model"),
+                         [where] * (shape[0] * shape[1]))
+        tp = {k: torch.tensor(v, device=where, requires_grad=True)
+              for k, v in params.items()}
+        tx = torch.tensor(x, device=where, requires_grad=True)
+        with P_.use_mesh(mesh, getattr(P_, rules)):
+            y, aux = moe_ep.moe_ep(tp, tx, cfg)
+        ((y ** 2).sum() + aux["aux_loss"]).backward()
+        got[name] = ([y.detach()] + [tp[k].grad for k in sorted(tp)]
+                     + [tx.grad], float(aux["aux_loss"].detach()),
+                     float(aux["dropped_frac"]))
+    (host, haux, hdrop), (card, daux, ddrop) = got["cpu"], got["card"]
+    y_excess = float(((card[0].cpu() - host[0]).abs()
+                      - MESH_Y_RTOL * host[0].abs()).max()
+                     / host[0].abs().max())
+    share = grad_share(torch, [g.cpu() for g in card[1:]], host[1:])
+    out = {"y_excess_share": y_excess, "aux_rel": abs(daux - haux) / haux,
+           "dropped": ddrop, "grad_share": share,
+           "repeat_bit_equal": all(torch.equal(a, b) for a, b in
+                                   zip(card, got["again"][0]))
+           and got["again"][1:] == (daux, ddrop)}
+    what = f"moe_ep {arch} on {shape[0]} x {shape[1]} ({rules})"
+    check(y_excess <= MESH_Y_ATOL_SHARE, f"{what}: the output beyond rtol "
+          f"{MESH_Y_RTOL} by {y_excess:.2e} of its largest value")
+    check(out["aux_rel"] <= MESH_AUX_RTOL, f"{what}: aux {daux} vs {haux}")
+    check(ddrop == hdrop, f"{what}: dropped {ddrop} vs {hdrop}")
+    check(share <= MESH_GRAD_SHARE, f"{what}: a gradient off by "
+          f"{share:.2e} of its largest value")
+    return out
+
+
+def moe_layer_on_mesh(torch, dev, mesh, cfg, x_dtype: str) -> dict:
+    """One MoE layer of ``cfg`` (float32 master weights from the package's
+    init, seed 1; x of ``MESH_LAYER_SHAPE`` tokens in ``x_dtype``) through
+    ``moe`` under ``mesh`` with the training rules and through
+    ``moe_reference``: the outputs, the aux loss against the mean of the
+    data shards' (per-shard ``moe_reference``), and the gradients of
+    mean(y**2) (the two aux losses differ by design), held to
+    ``MESH_LAYER_TOL[x_dtype]``."""
+    from repro_torch.core import fabric_matvec as fm
+    from repro_torch.models import moe
+    from repro_torch.sharding import partition as P_
+
+    tol = MESH_LAYER_TOL[x_dtype]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    weights = {k: s.materialize(gen, torch.float32, dev)
+               for k, s in moe.moe_specs(cfg).items()}
+    x = torch.randn(MESH_LAYER_SHAPE + (cfg.d_model,), generator=gen,
+                    device=dev).to(getattr(torch, tol["dtype"]))
+    res = {}
+    torch.cuda.reset_peak_memory_stats()
+    for path in ("ep", "reference"):
+        wp = {k: v.clone().requires_grad_() for k, v in weights.items()}
+        xp = x.clone().requires_grad_()
+        if path == "ep":
+            fm.reset_counts()
+            with P_.use_mesh(mesh, P_.DEFAULT_RULES):
+                y, aux = moe.moe(wp, xp, cfg)
+            coll = {k: {"calls": n, "bytes": fm.collective_bytes[k]}
+                    for k, n in fm.collectives.items()}
+        else:
+            y, aux = moe.moe_reference(wp, xp, cfg)
+        (y.float() ** 2).mean().backward()
+        res[path] = (y.detach().float(), float(aux["aux_loss"].detach()),
+                     float(aux["dropped_frac"]),
+                     [wp[k].grad for k in sorted(wp)], xp.grad.float())
+        del wp, xp, y, aux
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    (ye, ae, de, gwe, gxe), (yr, ar, dr, gwr, gxr) = (res["ep"],
+                                                      res["reference"])
+    with torch.no_grad():
+        shard_aux = statistics.fmean(
+            float(moe.moe_reference(weights, xs, cfg)[1]["aux_loss"])
+            for xs in x.chunk(mesh.shape["data"]))
+    yd = (ye - yr).abs()
+    scale = float(yr.abs().max())
+    out = {"x": list(x.shape), "y_max_abs_diff": float(yd.max()),
+           "y_scale": scale,
+           "y_excess_share": float((yd - tol["y_rtol"] * yr.abs()).max())
+           / scale,
+           "y_equal_share": float((yd == 0).float().mean()),
+           "aux": ae, "aux_reference": ar, "aux_shard_mean": shard_aux,
+           "dropped": [de, dr],
+           "weight_grad_share": grad_share(torch, gwe, gwr),
+           "x_grad_share": grad_share(torch, [gxe], [gxr]),
+           "collectives": coll, "max_memory_gb": peak}
+    what = f"the full-width layer, x in {x_dtype}"
+    check(de == dr == 0.0, f"{what}: dropped {de} / {dr}")
+    check(out["y_excess_share"] <= tol["y_atol_share"], f"{what}: moe_ep's "
+          f"output beyond rtol {tol['y_rtol']} by {out['y_excess_share']:.2e}"
+          " of its largest value")
+    check(abs(ae - shard_aux) <= MESH_LAYER_AUX_RTOL * shard_aux,
+          f"{what}: aux {ae} vs the data shards' mean {shard_aux}")
+    check(out["weight_grad_share"] <= tol["w_share"]
+          and out["x_grad_share"] <= tol["x_share"], f"{what}: gradients "
+          f"off by {out['weight_grad_share']:.2e} (weights) and "
+          f"{out['x_grad_share']:.2e} (x) of their largest values")
+    return out
+
+
+def mesh_lm_phase(np, torch, dev, card) -> dict:
+    """Phase 3k: the LM stack on the mesh, every position on the one card
+    (a mesh of one card runs the real schedule and measures its host
+    cost; it speeds nothing up).  (a) ``moe_ep`` of the MoE smoke configs
+    on 2 x 4 and 1 x 4 meshes of the card under the training and the
+    inference rules against the same meshes on the CPU
+    (``moe_smoke_on_mesh``); (b) olmoe-1b-7b at its full published width
+    and depth in bf16, served the JAX serve launcher's traffic under
+    ``use_mesh(1 x 4, INFERENCE_RULES)`` and again without a mesh: every
+    MoE layer of each prompt's no-mesh prefill and first decode step given
+    its own input again through ``moe_ep`` on the mesh, within one bf16
+    step (teacher-forced); end to end, the logits on 1 x 4, 1 x 2 and no
+    mesh and the step at which greedy tokens first part (reported, not
+    gated: random weights with the reference's init amplify a one-step
+    rounding difference over 16 layers); decode times with and without
+    the mesh, one profiled step each and the collectives of a step; (c) one olmoe MoE layer
+    at full width under the training rules on 2 x 4 (x of 2 x 4096 tokens
+    in bf16, float32 master weights, capacity_factor 8) against
+    ``moe_reference``: the output, the aux loss against the mean of the
+    data shards' and the gradients of mean(y**2); (d) olmoe-1b-7b at full width and
+    ``MESH_TRAIN_LAYERS`` layers, ``train_step`` under a 2 x 4 mesh of the
+    default rules for ``MESH_TRAIN_STEPS`` steps of 2 x 4096 tokens: losses
+    and norms finite, step times, peak memory and collectives per step;
+    (e) the train launcher at smoke size on 4 positions of the card
+    against 4 of the CPU, the same loss lines."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import fabric_matvec as fm
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe, moe_ep
+    from repro_torch.sharding import partition as P_
+    from repro_torch.train import (OptimizerConfig, init_opt_state,
+                                   make_train_state, train_step)
+
+    out = {}
+    # the mesh names the card by index, as its tensors report it
+    cdev = (torch.device("cuda", torch.cuda.current_device())
+            if dev.type == "cuda" else dev)
+
+    def mesh(shape, where=cdev):
+        return make_mesh(shape, ("data", "model"),
+                         [where] * (shape[0] * shape[1]))
+
+    def counted(fn):
+        """fn's collectives by kind: calls and bytes."""
+        fm.reset_counts()
+        res = fn()
+        return res, {k: {"calls": n, "bytes": fm.collective_bytes[k]}
+                     for k, n in fm.collectives.items()}
+
+    # (a) the smoke configs, card mesh against CPU mesh
+    out["smoke"] = {f"{a} {s[0]}x{s[1]} {r}": moe_smoke_on_mesh(
+        np, torch, cdev, a, s, r) for a in MESH_SMOKE_ARCHS
+        for s in MESH_SMOKE_MESHES for r in MESH_SMOKE_RULES}
+    sm = out["smoke"].values()
+    varies = [k for k, e in out["smoke"].items() if not e["repeat_bit_equal"]]
+    print(f"  moe_ep of {', '.join(MESH_SMOKE_ARCHS)} (smoke) on 2 x 4 and "
+          f"1 x 4 meshes of the card, training and inference rules, vs the "
+          f"same meshes on the CPU: output beyond rtol {MESH_Y_RTOL} by "
+          f"{max(e['y_excess_share'] for e in sm):.2e} of its largest value"
+          f", aux rel {max(e['aux_rel'] for e in sm):.2e}, gradient leaf "
+          f"{max(e['grad_share'] for e in sm):.2e} of its largest value "
+          f"(tolerances {MESH_Y_ATOL_SHARE}, {MESH_AUX_RTOL}, "
+          f"{MESH_GRAD_SHARE}), dropped fractions equal (largest "
+          f"{max(e['dropped'] for e in sm):.4f}); a repeated forward and "
+          "backward on the card is "
+          + ("bit-equal in all eight" if not varies
+             else f"not bit-equal in {varies}"))
+
+    # (b) olmoe-1b-7b served at full width, on the 1 x 4 mesh and without
+    cfg = get_config(MESH_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.d_ff, cfg.vocab_size, cfg.n_experts, cfg.experts_per_token,
+           cfg.dtype, cfg.param_count())
+          == (16, 2048, 16, 16, 1024, 50304, 64, 8, "bfloat16",
+              6_919_094_272), f"the {MESH_ARCH} config changed: {cfg}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    params = list(model.parameters())
+    out["serve_params"] = sum(p.numel() for p in params)
+    out["serve_weight_gb"] = sum(p.numel() * p.element_size()
+                                 for p in params) / 1e9
+    serve_meshes = {s: mesh(s) for s in MESH_SERVE_SHAPES}
+
+    def under(shape, fn):
+        """fn under the mesh of that shape (inference rules), or none."""
+        ctx = (P_.use_mesh(serve_meshes[shape], P_.INFERENCE_RULES)
+               if shape else contextlib.nullcontext())
+        with ctx:
+            return fn()
+
+    served, serve_ms, peak = {}, {}, {}
+    for on in (True, False):
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            served[on] = under(on and MESH_SERVE_SHAPE, lambda: serve_launch.run(
+                ["--arch", MESH_ARCH, "--device", str(dev)], model=model))
+            serve_ms[on] = (time.perf_counter() - t0) * 1e3
+        peak[on] = torch.cuda.max_memory_allocated() / 1e9
+        check(len(served[on]) == 6 and all(
+            r.done and len(r.output) == 16 for r in served[on]),
+            "the launcher's traffic: a request not done")
+    parted = []
+    for a, b in zip(served[True], served[False]):
+        first = next((i for i, (u, v) in enumerate(zip(a.output, b.output))
+                      if u != v), None)
+        parted.append(first)
+    # every request's prompt: the prefill logits and the first decode
+    # step's (on the no-mesh run's first token) without a mesh and on the
+    # 1 x 4 and 1 x 2 meshes (two groupings of the combine's sum), each MoE
+    # call of the no-mesh passes recorded with its input and output
+    calls, logits = [], {s: [] for s in (None,) + MESH_SERVE_SHAPES}
+    plain_moe = moe.moe
+
+    def recording(p, x, c):
+        y, aux = plain_moe(p, x, c)
+        calls.append((p, x, y))
+        return y, aux
+
+    for r in served[False]:
+        prompt = torch.as_tensor(r.prompt, dtype=torch.long,
+                                 device=dev)[None]
+        tok = torch.tensor([[r.output[0]]], device=dev)
+        for shape in logits:
+            if shape is None:
+                moe.moe = recording
+            try:
+                pl, cache = under(shape, lambda: M.prefill(
+                    model, {"tokens": prompt}, cfg, MESH_MAX_LEN))
+                dl, _ = under(shape, lambda: M.decode_step(
+                    model, {"tokens": tok}, cache, cfg))
+            finally:
+                moe.moe = plain_moe
+            check(bool(torch.isfinite(pl).all() and torch.isfinite(dl).all()),
+                  f"request {r.uid}: non-finite logits on {shape}")
+            logits[shape].append((pl.float(), dl.float()))
+    del cache
+
+    def apart(a, b, i):
+        """Per request, max|diff| of prefill (i = 0) or decode (1) logits."""
+        return [float((u[i] - v[i]).abs().max())
+                for u, v in zip(logits[a], logits[b])]
+
+    one, two = MESH_SERVE_SHAPES
+    def label(s):
+        return f"{s[0]} x {s[1]}" if s else "no mesh"
+
+    ends = {f"{label(x)} vs {label(y)}": {"prefill": apart(x, y, 0),
+                                          "decode": apart(x, y, 1)}
+            for x, y in ((one, None), (two, None), (one, two))}
+    scale = max(float(u[0].abs().max()) for u in logits[None])
+    del logits
+    # the same layers on the model's own activations (teacher-forced):
+    # each recorded MoE input through moe_ep on the serving mesh, within
+    # one bf16 step of the no-mesh output (MESH_LAYER_TOL["bfloat16"])
+    tol = MESH_LAYER_TOL["bfloat16"]
+    worst, equal, elems = 0.0, 0, 0
+    with P_.use_mesh(serve_meshes[MESH_SERVE_SHAPE], P_.INFERENCE_RULES):
+        for p, x, y in calls:
+            ye = moe_ep.moe_ep(p, x, cfg)[0].float()
+            y = y.float()
+            d = (ye - y).abs()
+            worst = max(worst, float((d - tol["y_rtol"] * y.abs()).max())
+                        / float(y.abs().max()))
+            equal += int((d == 0).sum())
+            elems += d.numel()
+    check(worst <= tol["y_atol_share"], f"olmoe's MoE layers on their own "
+          f"activations: moe_ep on the mesh beyond rtol {tol['y_rtol']} of "
+          f"the no-mesh output by {worst:.2e} of its largest value")
+    layers = {"calls": len(calls), "excess_share": worst,
+              "bit_equal_share": equal / elems}
+    del calls
+    r0 = served[False][0]
+    prompt = torch.as_tensor(r0.prompt, dtype=torch.long, device=dev)[None]
+    # decode times at one slot on request 0's prefilled cache, and one
+    # step under torch.profiler
+    times, coll, profiled = {}, {}, {}
+    for on in (True, False):
+        shape = on and MESH_SERVE_SHAPE
+        _, cache = under(shape, lambda: M.prefill(
+            model, {"tokens": prompt}, cfg, MESH_MAX_LEN))
+        tok = torch.tensor([[r0.output[0]]], device=dev)
+
+        def step():
+            return under(shape, lambda: M.decode_step(
+                model, {"tokens": tok}, cache, cfg))
+        for _ in range(3):                               # warm-up
+            step()
+        _, coll[on] = counted(step)
+        times[on] = event_times(torch, step, MESH_TIMED_DECODES)
+        profiled[on] = profile_once(torch, step)
+    out["serve"] = {
+        "mesh": f"{MESH_SERVE_SHAPE[0]} x {MESH_SERVE_SHAPE[1]}",
+        "tokens_part_at": parted, "logits_max_abs_diff": ends,
+        "logit_scale": scale, "layers_teacher_forced": layers,
+        "serve_ms": {"mesh": serve_ms[True],
+                                             "none": serve_ms[False]},
+        "decode_ms": {"mesh": times[True], "none": times[False]},
+        "collectives_per_step": coll[True],
+        "profiled_step": {"mesh": profiled[True], "none": profiled[False]},
+        "max_memory_gb": {"mesh": peak[True], "none": peak[False]}}
+    del model, params, cache
+    torch.cuda.empty_cache()
+    sv = out["serve"]
+    print(f"  {MESH_ARCH} at full width: {out['serve_params']:,} parameters"
+          f" ({out['serve_weight_gb']:.2f} GB of bf16), the serve launcher's "
+          f"traffic (6 requests, 3 slots, 16 new tokens, greedy) on a "
+          f"{sv['mesh']} mesh of the card (inference rules) and without a "
+          f"mesh: greedy tokens part at steps {parted} (None: never)")
+    print(f"  its {layers['calls']} MoE calls of the six prompts' prefill "
+          "and first decode step without a mesh, each input again through "
+          f"moe_ep on {sv['mesh']}: {100 * layers['bit_equal_share']:.3f} % "
+          f"of the outputs bit-equal, beyond one bf16 step by "
+          f"{worst:.2e} of the largest (tolerance {tol['y_atol_share']}); "
+          f"end to end, per request, the logits max|diff| (of logits up to "
+          f"{scale:.2f}): " + "; ".join(
+              f"{k} prefill {[round(v, 4) for v in e['prefill']]}, first "
+              f"decode {[round(v, 4) for v in e['decode']]}"
+              for k, e in ends.items()))
+    print(f"  times on {card}: the traffic {serve_ms[True]:.1f} ms on the "
+          f"mesh, {serve_ms[False]:.1f} ms without; a decode step at one "
+          f"slot {times[True]['median_ms']:.3f} ms on the mesh [min "
+          f"{times[True]['min_ms']:.3f}, max {times[True]['max_ms']:.3f}], "
+          f"{times[False]['median_ms']:.3f} ms without [min "
+          f"{times[False]['min_ms']:.3f}, max {times[False]['max_ms']:.3f}]"
+          f" (CUDA events, median of {MESH_TIMED_DECODES}); collectives of "
+          "a mesh step: " + ", ".join(
+              f"{k} {v['calls']} calls ({v['bytes']:,} bytes)"
+              for k, v in coll[True].items())
+          + f"; torch.cuda.max_memory_allocated {peak[True]:.2f} GB on the "
+          f"mesh, {peak[False]:.2f} GB without")
+    for on, name in ((True, "on the mesh"), (False, "without")):
+        p = profiled[on]
+        print(f"  one decode step {name} under torch.profiler: "
+              + (f"{p['kernels']} kernels, {p['device_busy_ms']:.3f} ms of "
+                 f"device time in {p['wall_ms']:.3f} ms of wall (device "
+                 f"busy {100 * p['device_share']:.1f} %)" if p["kernels"]
+                 else "device time not measured (the profiler recorded no "
+                 "device events)"))
+
+    # (c) one MoE layer at full width, training rules, no drops: x in
+    # float32 and in bf16 over the same float32 master weights
+    lcfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    torch.cuda.empty_cache()
+    out["layer"] = {name: moe_layer_on_mesh(torch, dev, mesh((2, 4)), lcfg,
+                                            name) for name in MESH_LAYER_TOL}
+    for name, ly in out["layer"].items():
+        tol = MESH_LAYER_TOL[name]
+        print(f"  one {MESH_ARCH} MoE layer at full width (x {ly['x']} in "
+              f"{name}, float32 master weights, capacity_factor 8) on a 2 x "
+              f"4 mesh of the card, training rules, vs moe_reference: "
+              f"output max|diff| {ly['y_max_abs_diff']:.3e} of values up to "
+              f"{ly['y_scale']:.1f} ({100 * ly['y_equal_share']:.2f} % "
+              f"bit-equal; beyond rtol {tol['y_rtol']:.3g} by "
+              f"{ly['y_excess_share']:.2e} of the largest, tolerance "
+              f"{tol['y_atol_share']}); aux {ly['aux']:.6f} (the data "
+              f"shards' mean {ly['aux_shard_mean']:.6f}, the reference's "
+              f"global {ly['aux_reference']:.6f}); gradients of mean(y**2): "
+              f"weights {ly['weight_grad_share']:.2e}, x "
+              f"{ly['x_grad_share']:.2e} of each leaf's largest (tolerances "
+              f"{tol['w_share']:.3g}, {tol['x_share']:.3g}); collectives "
+              + ", ".join(f"{k} {v['calls']}" for k, v in
+                          ly["collectives"].items())
+              + f"; peak memory {ly['max_memory_gb']:.2f} GB")
+
+    # (d) the trainer on the 2 x 4 mesh at full width, 2 layers
+    tcfg = dataclasses.replace(cfg, n_layers=MESH_TRAIN_LAYERS)
+    check(tcfg.param_count() == 1_045_176_320,
+          f"{tcfg.param_count()} parameters at {MESH_TRAIN_LAYERS} layers")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = M.init_params(tcfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev, trainable=True)
+    opt = init_opt_state(model, "int8_ef")     # as make_train_state has it
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    ocfg = OptimizerConfig(learning_rate=1e-3, warmup_steps=1,
+                           total_steps=MESH_TRAIN_STEPS)
+    shape = ShapeConfig("cli", MESH_LAYER_SHAPE[1], MESH_LAYER_SHAPE[0],
+                        "train")
+    history, step_ms, step_coll = [], [], []
+    with P_.use_mesh(mesh((2, 4)), P_.DEFAULT_RULES):
+        for step in range(MESH_TRAIN_STEPS):
+            batch = make_batch(tcfg, shape, step, device=dev)
+            fm.reset_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            model, opt, m = train_step(model, opt, batch, tcfg, ocfg, 1)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            history.append({k: float(v) for k, v in m.items()})
+            step_coll.append({k: {"calls": n,
+                                  "bytes": fm.collective_bytes[k]}
+                              for k, n in fm.collectives.items()})
+    train_peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+              for h in history), f"a non-finite step: {history}")
+    n_params = sum(p.numel() for p in model.parameters())
+    out["train"] = {"params": n_params, "state_gb": state_gb,
+                    "history": history, "step_ms": step_ms,
+                    "collectives_per_step": step_coll[-1],
+                    "max_memory_gb": train_peak,
+                    "tokens_per_step": MESH_LAYER_SHAPE[0]
+                    * MESH_LAYER_SHAPE[1]}
+    del model, opt, batch, m
+    torch.cuda.empty_cache()
+    print(f"  {MESH_ARCH} at full width and {MESH_TRAIN_LAYERS} layers "
+          f"({n_params:,} parameters, float32 master copy, "
+          f"'{tcfg.remat_policy}' remat) trained on a 2 x 4 mesh of the "
+          f"card (default rules: FSDP gathers over data, experts over "
+          f"model), {MESH_TRAIN_STEPS} steps of {MESH_LAYER_SHAPE[0]} x "
+          f"{MESH_LAYER_SHAPE[1]} tokens: losses "
+          + ", ".join(f"{h['loss']:.4f}" for h in history)
+          + "; gradient norms " + ", ".join(f"{h['grad_norm']:.3f}"
+                                            for h in history)
+          + "; dropped " + ", ".join(f"{h['dropped_frac']:.4f}"
+                                     for h in history))
+    print(f"  times on {card}: steps " + ", ".join(f"{t:.1f}"
+                                                   for t in step_ms)
+          + " ms (CUDA events around train_step); optimizer state "
+          f"{state_gb:.2f} GB; torch.cuda.max_memory_allocated "
+          f"{train_peak:.2f} GB; collectives of a step (the remat recompute "
+          "included): " + ", ".join(
+              f"{k} {v['calls']} calls ({v['bytes'] / 1e9:.2f} GB)"
+              for k, v in step_coll[-1].items()))
+
+    # (e) the launcher's host mesh: 4 positions of the card against 4 of
+    # the CPU, from the same weights
+    argv = ["--arch", MESH_ARCH, "--smoke", "--batch", "8", "--seq", "16",
+            "--steps", "3", "--log-every", "1"]
+    lines = {}
+    scfg = get_smoke_config(MESH_ARCH)
+    for where in ("cpu", str(cdev)):
+        weights, _ = make_train_state(scfg, 0, device="cpu")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train_launch.run(argv, model=weights.to(where),
+                             devices=[where] * 4)
+        lines[where] = [tuple(float(v) for v in m.groups())
+                        for m in map(LOSS_LINE.match,
+                                     buf.getvalue().splitlines()) if m]
+    host, cardl = lines["cpu"], lines[str(cdev)]
+    check(len(host) == len(cardl) == 3, f"loss lines {host} / {cardl}")
+    check(abs(cardl[0][0] - host[0][0]) <= MESH_LAUNCH_SAME_LOSS
+          and all(abs(c[0] - h[0]) <= MESH_LAUNCH_EARLY_LOSS
+                  and c[2] == h[2] for c, h in zip(cardl, host)),
+          f"the launcher on 4 positions of the card {cardl} vs the CPU's "
+          f"{host}")
+    out["launcher"] = {"cpu": host, "card": cardl}
+    print("  the train launcher at smoke size on 4 positions of the card vs "
+          "4 of the CPU (same weights): losses "
+          + ", ".join(f"{c[0]:.4f}/{h[0]:.4f}" for c, h in zip(cardl, host))
+          + f" (step 1 within {MESH_LAUNCH_SAME_LOSS}, steps 1-3 within "
+          f"{MESH_LAUNCH_EARLY_LOSS})")
     return out
 
 
@@ -2770,6 +3321,17 @@ def main() -> int:
     train_stats["phase_s"] = time.perf_counter() - t_train
     print(f"  training phase took {train_stats['phase_s']:.2f} s")
 
+    # --------------------------------------------------------------- 3k --
+    print(f"LM on the mesh, every position on the one card: moe_ep of the "
+          f"MoE smoke configs card against CPU; {MESH_ARCH} at full width "
+          "served on a 1 x 4 mesh and without; one full-width MoE layer and "
+          f"the {MESH_TRAIN_LAYERS}-layer full-width trainer on 2 x 4; the "
+          "launcher's host mesh")
+    t_mesh = time.perf_counter()
+    mesh_lm_stats = mesh_lm_phase(np, torch, dev, card)
+    mesh_lm_stats["phase_s"] = time.perf_counter() - t_mesh
+    print(f"  mesh LM phase took {mesh_lm_stats['phase_s']:.2f} s")
+
     # ---------------------------------------------------------------- 4 --
     print(f"times on {card} (CUDA events, medians of CUDA-graph replays; "
           "'flushed': one call after a 256 MiB write evicts the L2, "
@@ -3128,6 +3690,7 @@ def main() -> int:
                                   if k != "k2_row"},
                       "lm": lm_stats,
                       "train": train_stats,
+                      "mesh_lm": mesh_lm_stats,
                       "k2_launches_by_step": {
                           step: {f"{p},B={b}": n for (p, b), n in c.items()}
                           for step, c in k2_steps.items()},

@@ -1,7 +1,12 @@
-"""Training launcher: the train loop with checkpoint/resume, preemption
-handling and (optional) injected failures for fault drills.  The port's
-counterpart of ``repro.launch.train``, with the same flags and printed
-lines, plus ``--device``; one device, no mesh.
+"""Training launcher: mesh-aware train loop with checkpoint/resume,
+preemption handling and (optional) injected failures for fault drills.
+The port's counterpart of ``repro.launch.train``, with the same flags and
+printed lines, plus ``--device``.  As the JAX launcher builds
+``make_host_mesh()`` over every device it sees, this one builds it over
+``devices`` (by default every card, or the one CPU device of
+``--device cpu``) and runs under it when it has more than one position:
+the MoE layers then take the expert-parallel path (``models/moe_ep.py``),
+whose batch must split over the data axis.
 
 Usage (on the card; ``--device cpu`` runs on the CPU):
     python -m repro_torch.launch.train --arch internlm2-1.8b --smoke \\
@@ -25,17 +30,23 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data.pipeline import DataIterator
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M
+from repro_torch.sharding import partition as P_
 from repro_torch.train import (OptimizerConfig, checkpoint as ckpt,
                                init_opt_state, make_train_state, train_step)
 from repro_torch.train.fault import PreemptionGuard
 
 
-def run(argv=None, model: M.LanguageModel | None = None) -> dict:
+def run(argv=None, model: M.LanguageModel | None = None,
+        devices=None) -> dict:
     """Train as the flags say; returns ``{"final_loss": ...}``.
     ``model``, when given, holds the starting weights: trainable float32
     leaves of the chosen config on the chosen device, updated in place;
-    otherwise they are drawn from seed 0."""
+    otherwise they are drawn from seed 0.  ``devices`` are the host
+    mesh's positions (repeats allowed), the counterpart of the device
+    count JAX reads from ``XLA_FLAGS``: by default every visible card on
+    CUDA and the one device otherwise; the parameters live on the first."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -56,15 +67,29 @@ def run(argv=None, model: M.LanguageModel | None = None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    dev = resolve_device(args.device)
+    if devices is None:
+        dev = resolve_device(args.device)
+        devices = ([f"cuda:{i}" for i in range(torch.cuda.device_count())]
+                   if dev.type == "cuda" else [dev])
+    else:
+        dev = resolve_device(devices[0])
+        if (args.device is not None
+                and resolve_device(args.device).type != dev.type):
+            raise ValueError(f"--device {args.device}, but the mesh's first "
+                             f"device is {dev}")
     shape = ShapeConfig("cli", seq_len=args.seq, global_batch=args.batch,
                         kind="train")
     ocfg = OptimizerConfig(learning_rate=args.lr,
                            warmup_steps=max(args.steps // 10, 1),
                            total_steps=args.steps,
                            compression=args.compression)
+    mesh = make_host_mesh(devices)
     guard = PreemptionGuard()
+    with P_.use_mesh(mesh if mesh.size > 1 else None):
+        return _train(args, cfg, dev, shape, ocfg, guard, model)
 
+
+def _train(args, cfg, dev, shape, ocfg, guard, model) -> dict:
     if model is None:
         params, opt_state = make_train_state(cfg, 0, device=dev)
     elif model.cfg != cfg or model.device.type != dev.type or not all(

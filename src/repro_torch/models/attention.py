@@ -8,8 +8,11 @@ einsum / matmul: the JAX package computes these products outside any
 Pallas kernel, and so does the port.
 
 The JAX module picks a GSPMD layout for the K / V heads
-(``_kv_heads_shardable``); with no mesh it always takes the grouped
-arithmetic below, which is all the port keeps.
+(``_kv_heads_shardable``): under a mesh whose model axis does not divide
+the K kv heads it repeats them to H heads first, otherwise it takes the
+grouped arithmetic below.  Both give the same values; the port keeps the
+grouped arithmetic under any mesh (the mesh tests hold it to the JAX
+repeat path).
 """
 from __future__ import annotations
 

@@ -19,8 +19,9 @@ into (T, k, D) and summed over k in a fixed order (no atomics, so repeats
 are bit-identical on the card).  The Switch aux load-balance loss is
 ``E * sum(mean prob * top-1 fraction) * router_aux_weight``.
 
-The JAX ``moe`` takes its expert-parallel ``moe_ep`` path only under a
-multi-device mesh; here :func:`moe` is :func:`moe_reference`.
+:func:`moe` takes the expert-parallel path (``models/moe_ep.py``)
+whenever a mesh of more than one position is active, as the JAX ``moe``
+does; :func:`moe_reference` is the single-device path and its oracle.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe_ep as ep
 from repro_torch.models.layers import ParamSpec
 
 __all__ = ["moe_specs", "moe", "moe_reference"]
@@ -50,7 +52,10 @@ def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
 
 
 def moe(params, x: torch.Tensor, cfg: ModelConfig):
-    """x: (B, S, D) -> (y, aux) where aux = {'aux_loss', 'dropped_frac'}."""
+    """x: (B, S, D) -> (y, aux) where aux = {'aux_loss', 'dropped_frac'}.
+    Under a mesh with more than one position: ``moe_ep``."""
+    if ep.moe_ep_applicable(cfg):
+        return ep.moe_ep(params, x, cfg)
     return moe_reference(params, x, cfg)
 
 

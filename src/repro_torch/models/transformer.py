@@ -24,6 +24,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ParamSpec, mlp, mlp_specs, rmsnorm,
                                        rmsnorm_specs)
+from repro_torch.sharding.partition import (current_mesh, current_rules,
+                                            use_mesh)
 
 __all__ = ["block_specs", "cross_block_specs", "shared_block_specs",
            "dense_block", "moe_block", "ssm_block", "cross_block",
@@ -230,6 +232,14 @@ def remat_wrap(fn, policy: str):
     def wrapped(*args):
         if not _records(args):
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False,
+        # the recompute runs inside the backward pass, which autograd runs
+        # on a thread of its own for CUDA tensors: it re-enters the mesh
+        # and rules the forward ran under (they are thread-local)
+        mesh, rules = current_mesh(), current_rules()
+
+        def under_mesh(*a):
+            with use_mesh(mesh, rules):
+                return fn(*a)
+        return checkpoint(under_mesh, *args, use_reentrant=False,
                           context_fn=context_fn)
     return wrapped

@@ -139,11 +139,40 @@ def latest_step(directory: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def _rebuild(like, it, dev: torch.device):
-    """A tree of ``like``'s structure from the restored leaves ``it``
-    yields in :func:`_flatten` order."""
+def _shardings(like, shardings) -> list:
+    """The sharding (or None) of each leaf of ``like``, in :func:`_flatten`
+    order, from a tree of ``like``'s structure in which a module's place
+    holds the JAX layout's dict (``param_shardings`` of its logical axes)
+    and any subtree may be None."""
+    if shardings is None:
+        return [None] * len(_flatten(like))
     if isinstance(like, torch.Tensor):
-        return next(it).to(dev)
+        return [shardings]
+    if isinstance(like, nn.Module):
+        def at(keys):
+            node = shardings
+            for k in keys:
+                if node is None:
+                    break
+                node = node[k]
+            return node
+        return [at(keys) for keys, _, _ in stacked_leaves(like)]
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return [x for f in like._fields
+                for x in _shardings(getattr(like, f), getattr(shardings, f))]
+    return [x for k in sorted(like) for x in _shardings(like[k],
+                                                        shardings[k])]
+
+
+def _rebuild(like, it, dev: torch.device | None):
+    """A tree of ``like``'s structure from the restored leaves ``it``
+    yields in :func:`_flatten` order, moved to ``dev`` (``None``: left
+    where they are)."""
+    def to(t):
+        return t if dev is None else t.to(dev)
+
+    if isinstance(like, torch.Tensor):
+        return to(next(it))
     if isinstance(like, nn.Module):
         arrays = {tuple(keys): (stack, next(it))
                   for keys, stack, _ in stacked_leaves(like)}
@@ -155,7 +184,7 @@ def _rebuild(like, it, dev: torch.device):
                 raise ValueError(f"{'/'.join(map(str, path))}: checkpoint "
                                  f"shape {tuple(a.shape)}, the tree's "
                                  f"{stack + p.shape}")
-            return (a[index] if index else a).to(dev)
+            return to(a[index] if index else a)
         return map_tree(like, leaf)
     if isinstance(like, tuple) and hasattr(like, "_fields"):
         return type(like)(*(_rebuild(getattr(like, f), it, dev)
@@ -165,12 +194,23 @@ def _rebuild(like, it, dev: torch.device):
 
 
 def restore(directory: str, tree_like, step: int | None = None,
-            device: str | torch.device | None = None):
+            device: str | torch.device | None = None, shardings=None):
     """Restore into the structure of ``tree_like`` (new tensors and
     modules; a module leaf keeps ``tree_like``'s ``requires_grad``), on
     ``device`` (the card unless the caller asks for the CPU).  Each leaf
-    takes the checkpoint's dtype.  Returns (tree, step, extra)."""
-    dev = resolve_device(device)
+    takes the checkpoint's dtype.  Returns (tree, step, extra).
+
+    ``shardings`` (exclusive with ``device``) places the leaves for the
+    current mesh, as the JAX ``restore`` does (elastic re-mesh): a tree
+    of ``tree_like``'s structure holding a
+    :class:`~repro_torch.sharding.partition.NamedSharding` or None per
+    leaf.  Each leaf must split as its spec says (``ValueError``
+    otherwise, as ``jax.device_put`` raises) and goes, whole, to its
+    sharding's home device: the port keeps parameters as global tensors.
+    A None leaf goes where the others go (the card when none has one)."""
+    if shardings is not None and device is not None:
+        raise ValueError("restore takes device or shardings, not both")
+    dev = resolve_device(device) if shardings is None else None
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -191,6 +231,12 @@ def restore(directory: str, tree_like, step: int | None = None,
                 arrays[int(k)] = z[k]
     leaves = [_tensor(arrays[i], manifest["dtypes"][i])
               for i in range(len(arrays))]
+    if shardings is not None:
+        per_leaf = _shardings(tree_like, shardings)
+        homes = [s.device for s in per_leaf if s is not None]
+        home = homes[0] if homes else resolve_device(None)
+        leaves = [a.to(home) if s is None else s.place(a)
+                  for a, s in zip(leaves, per_leaf, strict=True)]
     return _rebuild(tree_like, iter(leaves), dev), step, manifest["extra"]
 
 

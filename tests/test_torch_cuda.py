@@ -988,3 +988,92 @@ def test_lm_train_step_on_card_matches_cpu(cuda, arch):
         assert all(p.grad is None for p in card.parameters())
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+# --------------------------------------------------------------------------- #
+# the LM stack on the mesh (no kernel of its own): the expert-parallel MoE   #
+# on a mesh of the card against the same mesh on the CPU, and the train      #
+# launcher's host mesh.  chip_smoke.py's phase 3k serves olmoe-1b-7b at full #
+# width on a 1 x 4 mesh of the card and trains it on a 2 x 4 one             #
+# --------------------------------------------------------------------------- #
+def _moe_case(arch):
+    """olmoe's or granite-moe's smoke MoE weights and an (8, 16, D) x, from
+    numpy seed 0 at each leaf's init std."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    cfg = get_smoke_config(arch)
+    rng = np.random.default_rng(0)
+    params = {k: (rng.standard_normal(s.shape) * s.std()).astype(np.float32)
+              for k, s in moe.moe_specs(cfg).items()}
+    x = rng.standard_normal((8, 16, cfg.d_model)).astype(np.float32)
+    return cfg, params, x
+
+
+@pytest.mark.parametrize("rules", ["DEFAULT_RULES", "INFERENCE_RULES"])
+@pytest.mark.parametrize("shape", [(2, 4), (1, 4)], ids=["2x4", "1x4"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m"])
+def test_moe_ep_on_a_mesh_of_the_card_matches_the_cpu_mesh(cuda, arch,
+                                                           shape, rules):
+    """moe_ep's output, aux loss, dropped fraction and gradients on a mesh
+    whose every position is the card, against the same mesh on the CPU,
+    within the CPU-vs-JAX tolerances of tests/test_torch_moe_ep.py; a
+    repeated forward and backward on the card is bit-equal."""
+    from repro_torch.models import moe_ep
+    from repro_torch.sharding import partition as P_
+    cfg, params, x = _moe_case(arch)
+    got = {}
+    for name in ("cpu", "cuda:0", "cuda:0 again"):
+        dev = name.split()[0]
+        mesh = make_mesh(shape, ("data", "model"),
+                         [dev] * (shape[0] * shape[1]))
+        tp = {k: torch.tensor(v, device=dev, requires_grad=True)
+              for k, v in params.items()}
+        tx = torch.tensor(x, device=dev, requires_grad=True)
+        with P_.use_mesh(mesh, getattr(P_, rules)):
+            y, aux = moe_ep.moe_ep(tp, tx, cfg)
+        assert y.device == torch.device(dev)
+        ((y.float() ** 2).sum() + aux["aux_loss"]).backward()
+        got[name] = ([y.detach()] + [tp[k].grad for k in sorted(tp)]
+                     + [tx.grad], float(aux["aux_loss"].detach()),
+                     float(aux["dropped_frac"]))
+    (host, haux, hdrop), (card, daux, ddrop) = got["cpu"], got["cuda:0"]
+    torch.testing.assert_close(card[0].cpu(), host[0], rtol=1e-5,
+                               atol=1e-6 * float(host[0].abs().max()))
+    assert daux == pytest.approx(haux, rel=1e-6) and ddrop == hdrop
+    for a, b in zip(host[1:], card[1:], strict=True):
+        torch.testing.assert_close(b.cpu(), a, rtol=0,
+                                   atol=1e-5 * float(a.abs().max()))
+    again = got["cuda:0 again"]
+    assert all(torch.equal(a, b) for a, b in zip(card, again[0]))
+    assert again[1:] == (daux, ddrop)
+
+
+def test_train_launcher_builds_its_mesh_of_the_cards(cuda, monkeypatch):
+    """devices=None takes every visible card (one card: no mesh); a mesh
+    of 4 positions on the card prints the same losses as the same mesh on
+    the CPU, from the same weights."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train as lm_train
+    from repro_torch.train import make_train_state
+    seen = []
+    build = lm_train.make_host_mesh
+
+    def spy(devices):
+        mesh = build(devices)
+        seen.append(mesh)
+        return mesh
+
+    monkeypatch.setattr(lm_train, "make_host_mesh", spy)
+    argv = ["--arch", "olmoe-1b-7b", "--smoke", "--batch", "8", "--seq",
+            "16", "--steps", "3", "--log-every", "1"]
+    assert np.isfinite(lm_train.run(argv)["final_loss"])
+    assert seen[-1].device_list == [
+        torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    cfg = get_smoke_config("olmoe-1b-7b")
+    losses = {}
+    for dev in ("cpu", "cuda:0"):
+        model, _ = make_train_state(cfg, 0, device="cpu")
+        losses[dev] = lm_train.run(argv, model=model.to(dev),
+                                   devices=[dev] * 4)["final_loss"]
+        assert seen[-1].shape == {"data": 4, "model": 1}
+    assert losses["cuda:0"] == pytest.approx(losses["cpu"], abs=1e-3)
