@@ -147,6 +147,19 @@ result line):
    with the default rules, 3 steps of 2 x 4096 tokens (losses, step
    times, peak memory, collectives per step); and the train launcher at
    smoke size on 4 positions of the card against 4 of the CPU;
+3l. the multi-pod dry run (``repro_torch.launch.dryrun``; no kernel: it
+   runs on meta tensors and the JAX dry run reaches no Pallas call) held
+   to the card: internlm2-1.8b's train cell at full width (4096 tokens, a
+   global batch of 1, "full" remat) dry-run on a 1 x 1 mesh of a meta
+   position, then the real state and batch on the card and one
+   ``train_step`` under the same counting mode, the predicted argument
+   bytes equal to the state's and batch's and the predicted dot FLOPs
+   equal to the step's (the predicted live bytes beside
+   ``max_memory_allocated``, reported); olmoe-1b-7b's decode at one slot
+   with phase 3k's cache on a 1 x 4 meta mesh, its collectives equal to
+   those phase 3k counted on the card; and the command line in its own
+   process (llama3-8b and olmoe-1b-7b, ``decode_32k``, the 16 x 16 pod
+   mesh of meta positions), exit 0 and every record with the JAX keys;
 4. times on the card (CUDA events, medians) beside each kernel's bound:
    the kernel, its plain version and the library call each with the L2
    cache flushed before the call, and the kernel back to back as well
@@ -359,6 +372,19 @@ MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 3
 MESH_LAUNCH_SAME_LOSS, MESH_LAUNCH_EARLY_LOSS = 1.5e-4, 1e-3
 LOSS_LINE = re.compile(
     r"^step (?:\d+): loss=([\d.]+) gnorm=([\d.]+) lr=([\d.e+-]+)")
+
+
+# phase 3l: the dry run held to the card.  Phase 3j's microbatch of
+# TRAIN_ARCH (TRAIN_SEQ tokens, a global batch of 1, "full" remat) on a
+# 1 x 1 mesh; MESH_ARCH's decode at one slot with phase 3k's cache
+# (MESH_MAX_LEN) on 1 x 4; the command line on DRYRUN_CLI_ARCHS at
+# decode_32k on the pod mesh, in its own process, within DRYRUN_CLI_TIMEOUT
+DRYRUN_CLI_ARCHS = ("llama3-8b", "olmoe-1b-7b")
+DRYRUN_CLI_TIMEOUT = 400
+DRYRUN_RECORD_KEYS = {"arch", "shape", "mesh", "n_devices", "status",
+                      "lower_s", "compile_s", "memory", "cost",
+                      "collectives", "dots", "param_count",
+                      "active_param_count", "n_ops"}
 
 
 # the storage types of K3's instantiations, as the compiler mangles them
@@ -2359,6 +2385,167 @@ def mesh_lm_phase(np, torch, dev, card) -> dict:
     return out
 
 
+def dryrun_phase(np, torch, dev, card, mesh_collectives: dict) -> dict:
+    """Phase 3l: the multi-pod dry run held to the card.  (a)
+    ``TRAIN_ARCH`` at full width, one microbatch of ``TRAIN_SEQ`` tokens
+    with "full" remat: the cell dry-run on a 1 x 1 mesh of a meta
+    position, then the real float32 master copy, optimizer state
+    (``compression="none"``) and batch on the card and one ``train_step``
+    under the same counting mode (``dryrun.measure``): the predicted
+    argument bytes equal the real tensors' bytes and the predicted dot
+    FLOPs the step's; the predicted peak (arguments plus the largest live
+    bytes of the run) beside ``max_memory_allocated``, reported.  (b)
+    ``MESH_ARCH`` decoding one token at one slot with a cache of
+    ``MESH_MAX_LEN`` on a 1 x 4 meta mesh: its collectives by kind, calls
+    and bytes, equal to ``mesh_collectives``, what phase 3k counted for
+    one decode step on 1 x 4 of the card.  (c) the command line in its
+    own process on ``DRYRUN_CLI_ARCHS`` x decode_32k on the 16 x 16 pod
+    mesh, started first and awaited last: exit 0 and every record with
+    exactly the JAX record's keys (``n_ops`` for ``hlo_lines``)."""
+    import math
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import make_train_state
+
+    out = {}
+    axes = ("data", "model")
+    cdev = torch.device("cuda", torch.cuda.current_device())
+    tmp = tempfile.TemporaryDirectory()
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         ",".join(DRYRUN_CLI_ARCHS), "--shape", "decode_32k", "--mesh",
+         "pod", "--out", tmp.name], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(SRC)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # (a) the train cell against the card's state and step
+        cfg = get_config(TRAIN_ARCH)
+        shape = ShapeConfig("train", TRAIN_SEQ, 1, "train")
+        meta = make_mesh((1, 1), axes, ["meta"])
+        rules = dryrun.cell_rules(meta, "train")
+        t0 = time.perf_counter()
+        fn, args, specs = dryrun.build_cell(cfg, shape, meta, remat="full")
+        pred = dryrun.measure(fn, args, specs, meta, rules)
+        dry_s = time.perf_counter() - t0
+        del args
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt = make_train_state(
+            cfg, torch.Generator(device=dev).manual_seed(0),
+            compression="none", device=dev)
+        batch = make_batch(cfg, shape, 0, device=dev)
+        state = (list(params.parameters()) + [opt.step]
+                 + list(opt.m.parameters()) + list(opt.v.parameters())
+                 + list(batch.values()))
+        state_bytes = sum(t.numel() * t.element_size() for t in state)
+        del state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real = dryrun.measure(fn, (params, opt, batch), specs,
+                              make_mesh((1, 1), axes, [cdev]), rules)
+        loss = float(real.out[2]["loss"])
+        step_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(pred.argument_bytes == state_bytes == real.global_bytes,
+              f"{TRAIN_ARCH}: predicted argument bytes "
+              f"{pred.argument_bytes:,}, the card's state and batch "
+              f"{state_bytes:,}")
+        check(pred.counter.dot_flops == real.counter.dot_flops,
+              f"{TRAIN_ARCH}: predicted dot FLOPs {pred.counter.dot_flops:,}"
+              f", the card's step {real.counter.dot_flops:,}")
+        check(math.isfinite(loss), f"{TRAIN_ARCH}: loss {loss}")
+        predicted_peak = pred.argument_bytes + pred.counter.peak
+        out["train"] = {
+            "argument_bytes": pred.argument_bytes, "dot_flops":
+            pred.counter.dot_flops, "n_dots": pred.counter.n_dots,
+            "n_ops": {"meta": pred.counter.n_ops,
+                      "card": real.counter.n_ops},
+            "temp_bytes": {"meta": pred.counter.peak,
+                           "card": real.counter.peak},
+            "predicted_peak_bytes": predicted_peak,
+            "max_memory_allocated": peak,
+            "predicted_over_allocated": predicted_peak / peak,
+            "dry_run_s": dry_s, "card_step_s": step_s, "loss": loss}
+        del params, opt, batch, real, fn
+        torch.cuda.empty_cache()
+        tr = out["train"]
+        print(f"  {TRAIN_ARCH} at full width, train of {TRAIN_SEQ} tokens "
+              f"(\"full\" remat) on 1 x 1: dry run {dry_s:.2f} s; predicted "
+              f"argument bytes {tr['argument_bytes']:,} = the card's state "
+              f"and batch; predicted dot FLOPs {tr['dot_flops']:,} = the "
+              f"card step's ({tr['n_dots']} products; {step_s:.2f} s with the"
+              f" counter, loss {loss:.4f}); predicted peak (arguments + "
+              f"{tr['temp_bytes']['meta'] / 1e9:.2f} GB live) "
+              f"{predicted_peak / 1e9:.2f} GB against max_memory_allocated "
+              f"{peak / 1e9:.2f} GB on {card} (ratio "
+              f"{tr['predicted_over_allocated']:.4f}); the counter on the "
+              f"card saw {tr['n_ops']['card']} ops and "
+              f"{tr['temp_bytes']['card'] / 1e9:.2f} GB live, on meta "
+              f"{tr['n_ops']['meta']}")
+
+        # (b) the MoE decode cell against phase 3k's counts
+        mcfg = get_config(MESH_ARCH)
+        mshape = ShapeConfig("decode", MESH_MAX_LEN, 1, "decode")
+        mmesh = make_mesh((1, 4), axes, ["meta"] * 4)
+        fn, args, specs = dryrun.build_cell(mcfg, mshape, mmesh)
+        got = dryrun.measure(fn, args, specs, mmesh,
+                             dryrun.cell_rules(mmesh, "decode")).collectives
+        want: dict = {}
+        for kind, c in mesh_collectives.items():
+            rec = want.setdefault(dryrun.HLO_NAME[kind],
+                                  {"count": 0, "bytes": 0})
+            rec["count"] += c["calls"]
+            rec["bytes"] += c["bytes"]
+        seen = {k: {"count": v["count"], "bytes": v["bytes"]}
+                for k, v in got.items()}
+        check(seen == want, f"{MESH_ARCH} decode on 1 x 4: the dry run's "
+              f"collectives {seen}, phase 3k's on the card {want}")
+        out["moe_decode"] = {"collectives": got}
+        print(f"  {MESH_ARCH} decode at one slot (cache {MESH_MAX_LEN}) on a"
+              f" 1 x 4 meta mesh: collectives {got}, equal to phase 3k's on "
+              "the card")
+
+        # (c) the command line in its own process
+        stdout, stderr = cli.communicate(timeout=DRYRUN_CLI_TIMEOUT)
+        cli_s = time.perf_counter() - t_cli
+        check(cli.returncode == 0, f"the dry run's command line exited "
+              f"{cli.returncode}: {stderr[-2000:]}")
+        records = {}
+        for name in sorted(os.listdir(tmp.name)):
+            with open(os.path.join(tmp.name, name)) as f:
+                rec = json.load(f)
+            check(set(rec) == DRYRUN_RECORD_KEYS,
+                  f"{name}: keys {sorted(rec)}")
+            records[name] = {"lower_s": rec["lower_s"],
+                             "argument_bytes":
+                                 rec["memory"]["argument_bytes"],
+                             "dot_flops": rec["dots"]["dot_flops"],
+                             "collectives": rec["collectives"]}
+        check(len(records) == len(DRYRUN_CLI_ARCHS),
+              f"the command line wrote {sorted(records)}")
+        out["cli"] = {"wall_s": cli_s, "records": records,
+                      "lines": [ln for ln in stdout.splitlines()
+                                if ln.startswith(("OK", "FAIL", "SKIP"))]}
+        for ln in out["cli"]["lines"]:
+            print(f"  {ln}")
+        print(f"  the command line ({', '.join(DRYRUN_CLI_ARCHS)} x "
+              f"decode_32k on the pod mesh) in its own process: exit 0, "
+              f"{len(records)} records with the JAX keys, {cli_s:.1f} s "
+              "wall (beside (a) and (b))")
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+        tmp.cleanup()
+    return out
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not (SRC / "repro_torch" / "__init__.py").is_file():
@@ -3332,6 +3519,18 @@ def main() -> int:
     mesh_lm_stats["phase_s"] = time.perf_counter() - t_mesh
     print(f"  mesh LM phase took {mesh_lm_stats['phase_s']:.2f} s")
 
+    # --------------------------------------------------------------- 3l --
+    print("the multi-pod dry run on meta tensors held to the card: "
+          f"{TRAIN_ARCH}'s train cell against the card's state and step; "
+          f"{MESH_ARCH}'s decode collectives against phase 3k's; the "
+          "command line in its own process")
+    t_dry = time.perf_counter()
+    dryrun_stats = dryrun_phase(
+        np, torch, dev, card,
+        mesh_lm_stats["serve"]["collectives_per_step"])
+    dryrun_stats["phase_s"] = time.perf_counter() - t_dry
+    print(f"  dry-run phase took {dryrun_stats['phase_s']:.2f} s")
+
     # ---------------------------------------------------------------- 4 --
     print(f"times on {card} (CUDA events, medians of CUDA-graph replays; "
           "'flushed': one call after a 256 MiB write evicts the L2, "
@@ -3691,6 +3890,7 @@ def main() -> int:
                       "lm": lm_stats,
                       "train": train_stats,
                       "mesh_lm": mesh_lm_stats,
+                      "dryrun": dryrun_stats,
                       "k2_launches_by_step": {
                           step: {f"{p},B={b}": n for (p, b), n in c.items()}
                           for step, c in k2_steps.items()},

@@ -113,10 +113,10 @@ def cross_attention(params, x, vision_kv, cfg: ModelConfig,
                     k_chunk: int = 1024):
     """VLM cross-attn: queries from the text stream, KV from the vision
     embeddings (no RoPE, no causal mask)."""
-    B, S, _ = x.shape
-    pos = torch.zeros((B, S), dtype=torch.int32, device=x.device)
-    q, _, _ = _project_qkv(params, x, x, cfg, pos, rope=False)
     dtype = x.dtype
+    # only q is projected from x: the JAX function also projects k / v of
+    # x and drops them, products XLA eliminates and eager code would run
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
     k = torch.einsum("btd,dhk->bthk", vision_kv, params["wk"].to(dtype))
     v = torch.einsum("btd,dhk->bthk", vision_kv, params["wv"].to(dtype))
     kc = min(k_chunk, vision_kv.shape[1])

@@ -41,12 +41,16 @@ from repro_torch.models.layers import (ParamModule, ParamSpec, abstract_tree,
                                        logical_axes_tree, mlp, rmsnorm,
                                        rmsnorm_specs, stack_specs)
 
-__all__ = ["DTYPES", "LanguageModel", "n_groups",
+__all__ = ["DTYPES", "activation_dtype", "LanguageModel", "n_groups",
            "param_specs", "init_params", "abstract_params",
            "param_logical_axes", "forward", "init_cache",
            "cache_logical_axes", "prefill", "decode_step"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def activation_dtype(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.dtype]
 
 
 # --------------------------------------------------------------------------- #

@@ -105,6 +105,15 @@ class NamedSharding:
                                  f"over {count} shards ({part}) of "
                                  f"{self.mesh!r}")
 
+    def shard_shape(self, shape) -> tuple[int, ...]:
+        """The block of ``shape`` that one mesh position holds (JAX's
+        ``NamedSharding.shard_shape``); raises as :meth:`check` does."""
+        self.check(shape)
+        spec = tuple(self.spec) + (None,) * (len(shape) - len(self.spec))
+        return tuple(size // math.prod(self.mesh.shape[a]
+                                       for a in _names(part))
+                     for size, part in zip(shape, spec))
+
     def place(self, x: torch.Tensor) -> torch.Tensor:
         self.check(x.shape)
         return x.to(self.device)

@@ -1077,3 +1077,32 @@ def test_train_launcher_builds_its_mesh_of_the_cards(cuda, monkeypatch):
                                    devices=[dev] * 4)["final_loss"]
         assert seen[-1].shape == {"data": 4, "model": 1}
     assert losses["cuda:0"] == pytest.approx(losses["cpu"], abs=1e-3)
+
+
+def test_dry_run_predicts_the_card_train_step(cuda):
+    """internlm2-1.8b smoke ``train`` on a 1 x 1 mesh: the dry run's
+    argument bytes equal the bytes of the real state and batch on the
+    card, and its dot FLOPs those counted over one real step."""
+    from repro_torch.configs import ShapeConfig, get_smoke_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.train import make_train_state
+    cfg = get_smoke_config("internlm2-1.8b")
+    shape = ShapeConfig("train", 64, 4, "train")
+    axes = ("data", "model")
+    meta, card = make_mesh((1, 1), axes, ["meta"]), make_mesh((1, 1), axes,
+                                                              [cuda])
+    rules = dryrun.cell_rules(meta, "train")
+    fn, args, specs = dryrun.build_cell(cfg, shape, meta)
+    pred = dryrun.measure(fn, args, specs, meta, rules)
+    params, opt = make_train_state(cfg, 0, compression="none", device=cuda)
+    batch = make_batch(cfg, shape, 0, device=cuda)
+    real = dryrun.measure(fn, (params, opt, batch), specs, card, rules)
+    state = [p for p in params.parameters()] + [opt.step] + list(
+        opt.m.parameters()) + list(opt.v.parameters()) + list(batch.values())
+    assert all(t.is_cuda for t in state)
+    assert pred.argument_bytes == sum(t.numel() * t.element_size()
+                                      for t in state) == real.global_bytes
+    assert real.counter.dot_flops == pred.counter.dot_flops > 0
+    assert real.counter.n_dots == pred.counter.n_dots
+    assert torch.isfinite(real.out[2]["loss"])

@@ -431,7 +431,8 @@ def test_launcher_fails_when_ell_disagrees(monkeypatch):
 
 def test_import_hygiene_subprocess():
     """The port imports neither jax, the JAX package nor ml_dtypes when it
-    runs (the training path and its example included)."""
+    runs (the training path and its example included), and its dry run
+    sets no environment variable."""
     code = (
         "import sys, numpy as np\n"
         "import repro_torch\n"
@@ -567,6 +568,15 @@ def test_import_hygiene_subprocess():
         "    lm_train.run(['--arch', 'internlm2-1.8b', '--smoke', '--steps',\n"
         "                  '2', '--device', 'cpu', '--ckpt-dir', d])\n"
         "fault.assign_shards(4, [0, 1])\n"
+        "import os\n"
+        "env = dict(os.environ)\n"
+        "from repro_torch.launch import dryrun\n"
+        "dryrun.get_config = get_smoke_config\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    dryrun.main(['--arch', 'olmoe-1b-7b', '--shape', 'decode_32k',\n"
+        "                 '--mesh', 'pod', '--out', d])\n"
+        "    assert os.listdir(d) == ['olmoe-1b-7b_decode_32k_pod.json']\n"
+        "assert dict(os.environ) == env\n"
         "import runpy\n"
         f"runpy.run_path({str(EXAMPLES / 'torch_train_lm.py')!r})\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
