@@ -21,14 +21,17 @@ observability layer (the on-device half is :mod:`repro_torch.obs.trace`):
   same observations — what lets ``scripts/obs_report.py`` reproduce the
   registry's p50/p95 exactly from the JSONL event log.
 * :class:`MetricsRegistry` — the named instrument store, a
-  :meth:`~MetricsRegistry.span` context manager (wall-time via
-  ``perf_counter`` into a ``span.<name>`` histogram + a ``span`` event,
-  optionally forwarding to ``torch.profiler.record_function`` so spans
-  land in device profiles too), and an append-only event log with monotonic
-  timestamps — written live to a JSONL file when ``jsonl_path`` is given.
-* :class:`NullRegistry` — the same surface as no-ops: the uninstrumented
-  baseline ``benchmarks/observability_bench.py`` measures against, and the
-  zero-overhead opt-out for latency-critical deployments.
+  :meth:`~MetricsRegistry.span` context manager (wall time on
+  ``time.monotonic_ns`` into a ``span.<name>`` histogram, a ``span`` event
+  and a bounded list of span records that nest by parent id, optionally
+  forwarding to ``torch.profiler.record_function`` so spans land in device
+  profiles too), :meth:`~MetricsRegistry.annotate` (a profiler range
+  alone, for per-iteration phases), and an append-only event log with
+  monotonic timestamps — written live to a JSONL file when ``jsonl_path``
+  is given.
+* :class:`NullRegistry` — the same surface as no-ops: what the
+  benchmark's untraced runs hand the program (``perfbench/bench.py``),
+  and the zero-overhead opt-out for latency-critical deployments.
 
 Every instrument is exported by :meth:`MetricsRegistry.as_dict` as a
 stable, ``json.dumps``-safe dict (sorted names, plain scalars), so
@@ -40,7 +43,7 @@ import json
 import math
 import time
 from collections import deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "NullRegistry", "default_registry", "set_default_registry",
@@ -48,7 +51,12 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
 
 DEFAULT_WINDOW = 2048          # histogram ring size (last-K observations)
 MAX_EVENTS = 100_000           # in-memory event bound (JSONL file unbounded)
+MAX_SPANS = 10_000             # in-memory span-record bound
 EVENT_SCHEMA_VERSION = 1       # bump when an event's key set changes
+
+# the one context every no-op span and annotation returns: entering it
+# allocates nothing and starts no generator
+_NO_SPAN = nullcontext()
 
 
 class Counter:
@@ -134,10 +142,15 @@ class MetricsRegistry:
     sorted key order.  In-memory retention is bounded at ``MAX_EVENTS``
     (``events_dropped`` counts evictions); the file is never truncated.
 
-    ``profiler_annotations=True`` additionally wraps every :meth:`span` in
-    ``torch.profiler.record_function`` so host spans show up in device
-    traces; off by default (it is free only when no profiler is attached,
-    and the observability bench measures the default configuration).
+    Every :meth:`span` also leaves a record (:attr:`span_records`, the
+    last ``MAX_SPANS``): its name, an id, the id of the span open around
+    it in this registry (``None`` at the top), ``start_ns`` / ``end_ns``
+    on ``time.monotonic_ns`` and its fields.
+
+    ``profiler_annotations=True`` additionally wraps every :meth:`span` and
+    :meth:`annotate` in ``torch.profiler.record_function`` so host spans
+    show up in device traces; off by default (a range costs the host even
+    when no profiler is attached).
     """
 
     def __init__(self, jsonl_path: str | None = None,
@@ -149,6 +162,9 @@ class MetricsRegistry:
         self._hists: dict[str, Histogram] = {}
         self._events: deque[dict] = deque(maxlen=int(max_events))
         self.events_dropped = 0
+        self._spans: deque[dict] = deque(maxlen=MAX_SPANS)
+        self._open: list[int] = []          # ids of the open spans
+        self._next_id = 0
         self.window = int(window)
         self.profiler_annotations = bool(profiler_annotations)
         self._t0 = time.monotonic()
@@ -198,25 +214,51 @@ class MetricsRegistry:
             self._fh.flush()
         return ev
 
+    @property
+    def span_records(self) -> list[dict]:
+        """The retained span records, in the order the spans ended (a
+        copy)."""
+        return list(self._spans)
+
     @contextmanager
     def span(self, name: str, **fields):
-        """Time a block into the ``span.<name>`` histogram + a ``span``
-        event (recorded even if the block raises, so failed refreshes and
-        aborted solves still leave a latency sample)."""
+        """Time a block into the ``span.<name>`` histogram, a ``span``
+        event and a span record (all three even if the block raises, so
+        failed refreshes and aborted solves still leave a latency sample).
+        Yields ``fields``, which the block may add to: they are recorded
+        when it ends."""
         ann = None
         if self.profiler_annotations:
             from torch.profiler import record_function
             ann = record_function(name)
             ann.__enter__()
-        t0 = time.perf_counter()
+        sid, self._next_id = self._next_id, self._next_id + 1
+        parent = self._open[-1] if self._open else None
+        self._open.append(sid)
+        start = time.monotonic_ns()
         try:
-            yield
+            yield fields
         finally:
+            end = time.monotonic_ns()
+            self._open.pop()
             if ann is not None:
                 ann.__exit__(None, None, None)
-            ms = (time.perf_counter() - t0) * 1e3
+            ms = (end - start) / 1e6
             self.histogram(f"span.{name}").observe(ms)
             self.event("span", name=name, ms=ms, **fields)
+            self._spans.append({"name": name, "id": sid, "parent": parent,
+                                "start_ns": start, "end_ns": end,
+                                "fields": dict(fields)})
+
+    def annotate(self, name: str):
+        """A profiler range alone (``record_function`` with
+        ``profiler_annotations``, else a shared no-op context): no
+        histogram, event or record, so per-iteration phases cost nothing
+        without it."""
+        if self.profiler_annotations:
+            from torch.profiler import record_function
+            return record_function(name)
+        return _NO_SPAN
 
     # ------------------------------ export ------------------------------ #
     def as_dict(self) -> dict:
@@ -287,9 +329,8 @@ class NullRegistry(MetricsRegistry):
     def event(self, kind: str, **fields) -> dict:
         return {}
 
-    @contextmanager
     def span(self, name: str, **fields):
-        yield
+        return _NO_SPAN
 
 
 _default: MetricsRegistry | None = None

@@ -63,7 +63,7 @@ from repro_torch.kernels.pagerank_step import (pad_pagerank_operands,
 from repro_torch.kernels.streaming_matvec import streaming_matvec
 from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.pagerank import distributed as dist
-from repro_torch.obs.registry import default_registry
+from repro_torch.obs.registry import NullRegistry, default_registry
 from repro_torch.obs.trace import SolveTrace, instrumented_tol_loop
 from repro_torch.pagerank.dense import pagerank_dense, pagerank_dense_fixed
 from repro_torch.pagerank.precision import (PRECISIONS, STORAGE_DTYPES,
@@ -156,12 +156,11 @@ def _dedupe_edges(src: np.ndarray, dst: np.ndarray,
     return delta_mod.dedupe_directed(src, dst, n, drop_self_loops=False)
 
 
-def _split_ell(src: np.ndarray, dst: np.ndarray, n: int,
-               k0: int | None = None):
-    """Split-ELL layout in numpy: a per-row budget ``k0`` (the 90th degree
-    percentile by default) plus a COO overflow tail for the power-law hub
-    rows.  Returns ``((data, idx, ov_r, ov_c, ov_v), k0, overflow_nnz)``."""
-    csr = tr.build_transition_csr(src, dst, n, device="cpu")
+def _split_ell(csr, n: int, k0: int | None = None):
+    """Split-ELL layout in numpy from the host transition CSR: a per-row
+    budget ``k0`` (the 90th degree percentile by default) plus a COO
+    overflow tail for the power-law hub rows.  Returns ``((data, idx,
+    ov_r, ov_c, ov_v), k0, overflow_nnz)``."""
     counts = np.diff(csr.indptr.numpy())
     if k0 is None:
         k0 = max(4, int(np.percentile(counts, 90))) if len(counts) else 4
@@ -186,27 +185,35 @@ def _row_scale(y: torch.Tensor, scales: torch.Tensor | None) -> torch.Tensor:
     return y * (scales if y.dim() == 1 else scales[:, None])
 
 
-def _matvec(backend: str, operands, x: torch.Tensor) -> torch.Tensor:
+# the registry of the products that run outside an engine's step loop
+_QUIET = NullRegistry()
+
+
+def _matvec(backend: str, operands, x: torch.Tensor,
+            metrics=_QUIET) -> torch.Tensor:
     """y = H @ x on the prepared layout (tagged by ``backend``, the
     engine's ``_mv_backend``), for a vector x (n,) or a query block x
     (n, Q).  Value arrays may be stored in a reduced dtype; they are
     upcast at the multiply and accumulated in f32.  int8 layouts append
     their per-row f32 scales to the operand tuple (``bsr``: the
-    container's ``row_scales``)."""
+    container's ``row_scales``).  ``metrics.annotate`` marks the product
+    over the layout's rows (``engine.step.rows``) and ``ell``'s overflow
+    tail (``engine.step.overflow``)."""
     if backend == "dense":
         scales = operands[1] if len(operands) == 2 else None
-        return _row_scale(upcast_f32(operands[0]) @ x, scales)
+        with metrics.annotate("engine.step.rows"):
+            y = upcast_f32(operands[0]) @ x
+        return _row_scale(y, scales)
     if backend == "ell":
         data, idx, ov_r, ov_c, ov_v = operands[:5]
         scales = operands[5] if len(operands) == 6 else None
         data, ov_v = upcast_f32(data), upcast_f32(ov_v)
-        if x.dim() == 1:
-            y = torch.sum(data * x[idx], dim=1)
-            tail = torch.zeros_like(y).index_add_(0, ov_r, ov_v * x[ov_c])
-        else:
-            y = torch.sum(data[..., None] * x[idx], dim=1)
+        vec = x.dim() == 1
+        with metrics.annotate("engine.step.rows"):
+            y = torch.sum((data if vec else data[..., None]) * x[idx], dim=1)
+        with metrics.annotate("engine.step.overflow"):
             tail = torch.zeros_like(y).index_add_(
-                0, ov_r, ov_v[:, None] * x[ov_c])
+                0, ov_r, (ov_v if vec else ov_v[:, None]) * x[ov_c])
         return _row_scale(y + tail, scales)
     if backend == "sell":
         # two-bucket sliced ELLPACK (the dynamic engine's patchable ELL
@@ -215,18 +222,20 @@ def _matvec(backend: str, operands, x: torch.Tensor) -> torch.Tensor:
         dl, il, dh, ih, inv = operands[:5]
         sl, sh = operands[5:7] if len(operands) == 7 else (None, None)
         dl, dh = upcast_f32(dl), upcast_f32(dh)
-        if x.dim() == 1:
-            yl = torch.sum(dl * x[il], dim=1)
-            yh = torch.sum(dh * x[ih], dim=1)
-        else:
-            yl = torch.sum(dl[..., None] * x[il], dim=1)
-            yh = torch.sum(dh[..., None] * x[ih], dim=1)
+        with metrics.annotate("engine.step.rows"):
+            if x.dim() == 1:
+                yl = torch.sum(dl * x[il], dim=1)
+                yh = torch.sum(dh * x[ih], dim=1)
+            else:
+                yl = torch.sum(dl[..., None] * x[il], dim=1)
+                yh = torch.sum(dh[..., None] * x[ih], dim=1)
         return torch.cat([_row_scale(yl, sl), _row_scale(yh, sh)],
                          dim=0)[inv]
     if backend == "bsr":
         # one launch of the BSR kernel for a vector or a query block; the
         # container's int8 row scales are applied after it
-        return kops.spmv(operands[0], x)
+        with metrics.annotate("engine.step.rows"):
+            return kops.spmv(operands[0], x)
     raise ValueError(f"unknown backend {backend!r}")
 
 
@@ -234,21 +243,28 @@ def _uniform(n: int, device: torch.device) -> torch.Tensor:
     return torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
 
 
-def _run_fixed(operands, dang, d, *, backend: str, n: int, n_iters: int):
+def _run_fixed(operands, dang, d, *, backend: str, n: int, n_iters: int,
+               metrics):
+    """``n_iters`` steps from the uniform vector; each step is the
+    profiler range ``engine.step.combine``, around its product's
+    ranges."""
     pr = _uniform(n, dang.device)
     for _ in range(n_iters):
-        pr = sparse_step(lambda v: _matvec(backend, operands, v), pr, dang,
-                         d, n)
+        with metrics.annotate("engine.step.combine"):
+            pr = sparse_step(lambda v: _matvec(backend, operands, v, metrics),
+                             pr, dang, d, n)
     return pr
 
 
 def _run_tol(operands, dang, d, tol, x0, *, backend: str, n: int,
-             max_iters: int, watchdog: bool, trace: bool):
+             max_iters: int, watchdog: bool, trace: bool, metrics):
     pr0 = _uniform(n, dang.device) if x0 is None else x0
 
     def step(pr):
-        new = sparse_step(lambda v: _matvec(backend, operands, v), pr, dang,
-                          d, n)
+        with metrics.annotate("engine.step.combine"):
+            new = sparse_step(
+                lambda v: _matvec(backend, operands, v, metrics), pr, dang,
+                d, n)
         return new, torch.sum(torch.abs(new - pr))
 
     return instrumented_tol_loop(step, pr0, tol=tol, max_iters=max_iters,
@@ -375,23 +391,31 @@ class PageRankEngine:
                  precision: str = "auto"):
         dev = _engine_device(device, mesh)
         n = int(n)
-        src, dst = _dedupe_edges(np.asarray(src), np.asarray(dst), n)
-        self.n_edges = int(len(src))
-        self.density = self.n_edges / float(n * n)
-        # host edge-set bookkeeping (sorted src*n+dst keys + degree
-        # vectors): the landmark index (repro_torch.pagerank.landmarks)
-        # reads hub degrees and out-neighborhoods off the engine
-        self._keys = delta_mod.edge_keys(src, dst, n)
-        self._outdeg = np.bincount(src, minlength=n).astype(np.int64)
-        self._indeg = np.bincount(dst, minlength=n).astype(np.int64)
-        if backend == "auto":
-            backend = select_backend(
-                n, self.density, device=dev,
-                n_devices=None if mesh is None else mesh.size)
-        self._init_common(n, d, backend, precision, dev, metrics, mesh)
-        self._ell_k = ell_k
-        self._bsr_block_size = int(bsr_block_size)
-        with self.metrics.span("prepare", backend=self.backend):
+        # the registry first: the span "prepare" covers the whole build,
+        # in the phases prepare.dedupe, .keys, .csr, .pack and .upload
+        self.metrics = metrics if metrics is not None else default_registry()
+        m = self.metrics
+        with m.span("prepare") as fields:
+            with m.span("prepare.dedupe"):
+                src, dst = _dedupe_edges(np.asarray(src), np.asarray(dst), n)
+            self.n_edges = int(len(src))
+            self.density = self.n_edges / float(n * n)
+            # host edge-set bookkeeping (sorted src*n+dst keys + degree
+            # vectors): the landmark index (repro_torch.pagerank.landmarks)
+            # reads hub degrees and out-neighborhoods off the engine
+            with m.span("prepare.keys"):
+                self._keys = delta_mod.edge_keys(src, dst, n)
+                self._outdeg = np.bincount(src, minlength=n).astype(np.int64)
+                self._indeg = np.bincount(dst, minlength=n).astype(np.int64)
+            if backend == "auto":
+                backend = select_backend(
+                    n, self.density, device=dev,
+                    n_devices=None if mesh is None else mesh.size)
+            if fields is not None:              # None from a NullRegistry
+                fields["backend"] = backend
+            self._init_common(n, d, backend, precision, dev, metrics, mesh)
+            self._ell_k = ell_k
+            self._bsr_block_size = int(bsr_block_size)
             self._prepare_layout(src, dst)
 
     def _init_common(self, n, d, backend, precision, device, metrics,
@@ -495,76 +519,110 @@ class PageRankEngine:
 
     def _prepare_layout(self, src: np.ndarray, dst: np.ndarray) -> None:
         """Build the backend's prepared device layout from a deduplicated
-        COO edge list, in numpy first, as the JAX package builds it."""
-        n = self.n
-        dang = tr.dangling_mask(src, n).astype(np.float32)
-        if self.backend not in SHARDED_BACKENDS:
-            self._dang = self._put(dang)
+        COO edge list: in numpy first, as the JAX package builds it (the
+        ``ell`` tiers' transition CSR in the span ``prepare.csr``, the
+        rest of the host build in ``prepare.pack``), then placed on the
+        device (``prepare.upload``, ending in a synchronize unless the
+        registry is a :class:`NullRegistry`)."""
+        m = self.metrics
         self._mv_backend = self.backend
         self.layout = self.backend
         self._scales = None
-        if self.backend == "dense":
-            if self.precision == "f32":
-                self._operands = (self._put(
-                    tr.transition_dense_np(src, dst, n)),)
-            else:
-                # reduced tiers store H dangling-UNFIXED and pay the
-                # explicit scalar leak through sparse_step
-                H = tr.transition_dense_np(src, dst, n, fix_dangling=False)
-                if self.precision == "int8":
-                    scales = rowmax_scales(np.abs(H).max(axis=1,
-                                                         initial=0.0))
-                    self._operands = (
-                        self._put(quantize_int8(H, scales[:, None])),
-                        self._put(scales))
-                else:
-                    self._operands = (
-                        self._put(H).to(self.storage_dtype),)
-        elif self.backend == "ell":
-            ops, k0, ov_nnz = _split_ell(src, dst, n, k0=self._ell_k)
-            self.layout = f"ell(k0={k0})+overflow(nnz={ov_nnz})"
-            self._operands = self._quantize_split_ell(ops)
-        elif self.backend == "bsr":
-            self._operands = (self._prepare_bsr(src, dst),)
-        elif self.backend in SHARDED_BACKENDS:
-            self._prepare_sharded(src, dst, dang)
-        else:                                   # fused_dense
-            H = torch.from_numpy(
-                tr.transition_dense_np(src, dst, n, fix_dangling=False))
-            Hp, dangp = pad_pagerank_operands(H, torch.from_numpy(dang))
-            if self.precision == "int8":
-                Hp_np = Hp.numpy()
-                scales = rowmax_scales(np.abs(Hp_np).max(axis=1,
-                                                         initial=0.0))
-                Hp = torch.from_numpy(quantize_int8(Hp_np, scales[:, None]))
-                # (1, Np): the fused kernel applies it per row in its
-                # epilogue
-                self._scales = self._put(scales[None, :])
-            else:
-                Hp = Hp.to(self.storage_dtype)
-            self._operands = (Hp.to(self.device), dangp.to(self.device))
+        csr = None
+        if self.backend in ("ell", "ell_sharded"):
+            with m.span("prepare.csr"):
+                csr = tr.build_transition_csr(src, dst, self.n, device="cpu")
+        with m.span("prepare.pack"):
+            dang = tr.dangling_mask(src, self.n).astype(np.float32)
+            host = self._pack(src, dst, dang, csr)
+        with m.span("prepare.upload"):
+            self._upload(host, dang)
+            if not isinstance(m, NullRegistry):
+                self._synchronize()
         if self.precision != "f32":
             self.layout = f"{self.layout}[{self.precision}]"
         self._record_layout_bytes()
 
-    def _prepare_sharded(self, src: np.ndarray, dst: np.ndarray,
-                         dang: np.ndarray) -> None:
-        """The two mesh layouts, built in numpy at the padded N and cut
-        over the mesh.  ``dense_sharded``: H dangling-UNFIXED (explicit
-        leak) blocked ``P(row, col)``, int8 scales replicated.
-        ``ell_sharded``: full-K ELL rows over the flattened mesh, where
-        ``ell_k`` is a minimum row capacity and never a truncation (the
-        dynamic engine passes ``maxdeg + slack``), int8 scales row-sharded
-        like the rows."""
+    def _pack(self, src: np.ndarray, dst: np.ndarray, dang: np.ndarray,
+              csr) -> tuple:
+        """The tier's layout on the host (numpy arrays; CPU tensors on
+        ``fused_dense``), quantized there where the tier stores int8."""
+        n = self.n
+        if self.backend == "ell":
+            ops, k0, ov_nnz = _split_ell(csr, n, k0=self._ell_k)
+            self.layout = f"ell(k0={k0})+overflow(nnz={ov_nnz})"
+            return ops
+        if self.backend == "bsr":
+            return self._pack_bsr(src, dst)
+        if self.backend in SHARDED_BACKENDS:
+            return self._pack_sharded(src, dst, csr)
+        if self.backend == "dense":
+            if self.precision == "f32":
+                return (tr.transition_dense_np(src, dst, n),)
+            # reduced tiers store H dangling-UNFIXED and pay the explicit
+            # scalar leak through sparse_step
+            H = tr.transition_dense_np(src, dst, n, fix_dangling=False)
+            if self.precision != "int8":
+                return (H,)
+            scales = rowmax_scales(np.abs(H).max(axis=1, initial=0.0))
+            return quantize_int8(H, scales[:, None]), scales
+        # fused_dense
+        H = torch.from_numpy(
+            tr.transition_dense_np(src, dst, n, fix_dangling=False))
+        Hp, dangp = pad_pagerank_operands(H, torch.from_numpy(dang))
+        if self.precision != "int8":
+            return Hp.to(self.storage_dtype), dangp, None
+        Hp_np = Hp.numpy()
+        scales = rowmax_scales(np.abs(Hp_np).max(axis=1, initial=0.0))
+        return (torch.from_numpy(quantize_int8(Hp_np, scales[:, None])),
+                dangp, scales)
+
+    def _upload(self, host: tuple, dang: np.ndarray) -> None:
+        """Place :meth:`_pack`'s host layout on the engine's device (on
+        the mesh for the sharded tiers)."""
+        if self.backend in SHARDED_BACKENDS:
+            self._upload_sharded(host, dang)
+            return
+        self._dang = self._put(dang)
+        if self.backend == "ell":
+            self._operands = self._quantize_split_ell(host)
+        elif self.backend == "bsr":
+            self._operands = (self._upload_bsr(host),)
+        elif self.backend == "dense":
+            self._operands = (
+                tuple(self._put(a) for a in host) if self.precision == "int8"
+                else (self._put(host[0]).to(self.storage_dtype),))
+        else:                                   # fused_dense
+            Hp, dangp, scales = host
+            if scales is not None:
+                # (1, Np): the fused kernel applies it per row in its
+                # epilogue
+                self._scales = self._put(scales[None, :])
+            self._operands = (Hp.to(self.device), dangp.to(self.device))
+
+    def _synchronize(self) -> None:
+        """Wait for the engine's cards (the mesh's, on the sharded tiers)
+        to finish the placement."""
+        devices = (self.mesh.device_list if self.mesh is not None
+                   else [self.device])
+        for dev in {d for d in devices if d.type == "cuda"}:
+            torch.cuda.synchronize(dev)
+
+    def _pack_sharded(self, src: np.ndarray, dst: np.ndarray,
+                      csr) -> tuple:
+        """The two mesh layouts, built in numpy at the padded N.
+        ``dense_sharded``: H dangling-UNFIXED (explicit leak).
+        ``ell_sharded``: full-K ELL rows, where ``ell_k`` is a minimum row
+        capacity and never a truncation (the dynamic engine passes
+        ``maxdeg + slack``).  Returns ``(vals, idx or None, int8 scales or
+        None, k or None)``."""
         n, n_pad = self.n, self._n_pad
-        self._ppr_operands = self._ppr_scales = None
         if self.backend == "dense_sharded":
             vals = np.zeros((n_pad, n_pad), np.float32)
             vals[:n, :n] = tr.transition_dense_np(src, dst, n,
                                                   fix_dangling=False)
-            spec, extra, k = P(*self._axes), (), None
+            idx = k = None
         else:
-            csr = tr.build_transition_csr(src, dst, n, device="cpu")
             counts = np.diff(csr.indptr.numpy())
             maxdeg = int(counts.max()) if len(counts) else 0
             k = maxdeg if self._ell_k is None else max(int(self._ell_k),
@@ -574,37 +632,57 @@ class PageRankEngine:
             idx = np.zeros((n_pad, ell.k), np.int32)
             vals[:n] = ell.data.numpy()
             idx[:n] = ell.indices.numpy()
-            spec, k = P(self._axes), ell.k
-            extra = (self._shard(idx, spec),)
+            k = ell.k
+        scales = None
         if self.precision == "int8":
             scales = rowmax_scales(np.abs(vals).max(axis=1, initial=0.0))
             vals = quantize_int8(vals, scales[:, None])
-            self._scales = self._shard(
-                scales, P() if self.backend == "dense_sharded" else spec)
+        return vals, idx, scales, k
+
+    def _upload_sharded(self, host: tuple, dang: np.ndarray) -> None:
+        """Cut :meth:`_pack_sharded`'s layout over the mesh:
+        ``dense_sharded`` blocked ``P(row, col)`` with int8 scales
+        replicated, ``ell_sharded`` over the flattened mesh with int8
+        scales row-sharded like the rows."""
+        vals, idx, scales, k = host
+        self._ppr_operands = self._ppr_scales = None
+        dense = self.backend == "dense_sharded"
+        spec = P(*self._axes) if dense else P(self._axes)
+        extra = () if idx is None else (self._shard(idx, spec),)
+        if scales is not None:
+            self._scales = self._shard(scales, P() if dense else spec)
         self._operands = (self._shard(vals, spec, self.storage_dtype),
                           *extra)
         self._dang = self._pad_replicated(dang)
         self.layout = self._sharded_layout_name(k)
 
-    def _prepare_bsr(self, src: np.ndarray, dst: np.ndarray) -> BSRMatrix:
-        """The dangling-unfixed block layout in the storage dtype.  int8
-        scales are per row, the abs-max over the row's whole block budget
-        (slot and in-block column)."""
+    def _pack_bsr(self, src: np.ndarray, dst: np.ndarray) -> tuple:
+        """The dangling-unfixed block layout on the host: ``(blocks,
+        block_cols, shape, int8 row scales or None)``.  int8 scales are
+        per row, the abs-max over the row's whole block budget (slot and
+        in-block column)."""
         bsr = tr.build_transition_bsr(src, dst, self.n,
                                       bs=self._bsr_block_size, device="cpu")
         blocks = bsr.blocks.numpy()
-        cols = self._put(bsr.block_cols.numpy())
-        if self.precision == "int8":
-            nb_r, _, bs, _ = blocks.shape
-            # axis 2 is the row within a block: reduce over (slot, col)
-            absmax = np.abs(blocks).max(axis=(1, 3))        # (nb_r, bs)
-            scales = rowmax_scales(absmax.reshape(-1))      # (nb_r * bs,)
-            return BSRMatrix(
-                self._put(quantize_int8(blocks,
-                                        scales.reshape(nb_r, 1, bs, 1))),
-                cols, shape=bsr.shape, row_scales=self._put(scales))
-        return BSRMatrix(self._put(blocks).to(self.storage_dtype), cols,
-                         shape=bsr.shape)
+        cols = bsr.block_cols.numpy()
+        if self.precision != "int8":
+            return blocks, cols, bsr.shape, None
+        nb_r, _, bs, _ = blocks.shape
+        # axis 2 is the row within a block: reduce over (slot, col)
+        absmax = np.abs(blocks).max(axis=(1, 3))            # (nb_r, bs)
+        scales = rowmax_scales(absmax.reshape(-1))          # (nb_r * bs,)
+        return (quantize_int8(blocks, scales.reshape(nb_r, 1, bs, 1)), cols,
+                bsr.shape, scales)
+
+    def _upload_bsr(self, host: tuple) -> BSRMatrix:
+        """:meth:`_pack_bsr`'s layout on the device, in the storage
+        dtype."""
+        blocks, cols, shape, scales = host
+        if scales is None:
+            return BSRMatrix(self._put(blocks).to(self.storage_dtype),
+                             self._put(cols), shape=shape)
+        return BSRMatrix(self._put(blocks), self._put(cols), shape=shape,
+                         row_scales=self._put(scales))
 
     def _quantize_split_ell(self, ops: tuple) -> tuple:
         """Place a numpy split-ELL layout on the device in the storage
@@ -682,27 +760,29 @@ class PageRankEngine:
 
     # ------------------------------ queries ------------------------------ #
     def run(self, n_iters: int = 100) -> torch.Tensor:
-        """Fixed-schedule power iteration, issued with no host sync."""
-        if self.backend == "dense_sharded":
-            return dist.pagerank_distributed(
-                self._operands[0], self.mesh, n_iters, self.d, *self._axes,
-                dangling=self._dang, n_true=self.n,
-                scales=self._scales).full()[:self.n]
-        if self.backend == "ell_sharded":
-            return dist.pagerank_distributed_sparse(
-                *self._operands, self.mesh, n_iters, self.d,
-                dangling=self._dang, axes=self._axes, n_true=self.n,
-                scales=self._scales).full()[:self.n]
-        if self.backend == "fused_dense":
-            Hp, dangp = self._operands
-            return _run_fixed_fused(Hp, dangp, self._scales, n=self.n,
-                                    n_iters=n_iters, d=self.d)
-        if self.backend == "dense" and self.precision == "f32":
-            return pagerank_dense_fixed(self._operands[0], n_iters=n_iters,
-                                        d=self.d)
-        return _run_fixed(self._operands, self._dang, self.d,
-                          backend=self._mv_backend, n=self.n,
-                          n_iters=n_iters)
+        """Fixed-schedule power iteration, issued with no host sync, in
+        the profiler range ``engine.run``."""
+        with self.metrics.annotate("engine.run"):
+            if self.backend == "dense_sharded":
+                return dist.pagerank_distributed(
+                    self._operands[0], self.mesh, n_iters, self.d,
+                    *self._axes, dangling=self._dang, n_true=self.n,
+                    scales=self._scales).full()[:self.n]
+            if self.backend == "ell_sharded":
+                return dist.pagerank_distributed_sparse(
+                    *self._operands, self.mesh, n_iters, self.d,
+                    dangling=self._dang, axes=self._axes, n_true=self.n,
+                    scales=self._scales).full()[:self.n]
+            if self.backend == "fused_dense":
+                Hp, dangp = self._operands
+                return _run_fixed_fused(Hp, dangp, self._scales, n=self.n,
+                                        n_iters=n_iters, d=self.d)
+            if self.backend == "dense" and self.precision == "f32":
+                return pagerank_dense_fixed(self._operands[0],
+                                            n_iters=n_iters, d=self.d)
+            return _run_fixed(self._operands, self._dang, self.d,
+                              backend=self._mv_backend, n=self.n,
+                              n_iters=n_iters, metrics=self.metrics)
 
     def run_tol(self, tol: float = 1e-6, max_iters: int = 1000,
                 x0: np.ndarray | torch.Tensor | None = None, *,
@@ -726,7 +806,8 @@ class PageRankEngine:
         if x0 is not None:
             x0 = x0.to(self.device)
         tol_f32 = solve_dtype(tol, name="tol")
-        with self.metrics.span("solve", backend=self.backend):
+        with self.metrics.span("solve", backend=self.backend), \
+                self.metrics.annotate("engine.run"):
             if self.backend in SHARDED_BACKENDS:
                 kw = dict(tol=tol_f32, max_iters=max_iters, d=self.d,
                           dangling=self._dang, n_true=self.n,
@@ -753,7 +834,7 @@ class PageRankEngine:
                 out = _run_tol(self._operands, self._dang, self.d, tol_f32,
                                x0, backend=self._mv_backend, n=self.n,
                                max_iters=max_iters, watchdog=watchdog,
-                               trace=trace)
+                               trace=trace, metrics=self.metrics)
             return self._finish_solve(out, tol, max_iters, raise_on_fail)
 
     def ppr(self, seed_sets: Sequence[np.ndarray],

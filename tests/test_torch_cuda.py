@@ -7,8 +7,9 @@ patchable tier, the sharded mesh tiers on a mesh of the card against the
 same calls on a CPU mesh (K2 at their shard shapes against its plain
 version), the fabric simulator (hop mode, the full-width hop-mode matvec
 and the tiled schedule) against its CPU run, the LM stack's token server
-and a smoke train step against the CPU, and the training path's
-defaults.  K2 and K3 run at every batch
+and a smoke train step against the CPU, the training path's
+defaults, and a registry span's clock against the profiler's device
+timeline.  K2 and K3 run at every batch
 width of their kernels,
 and a NaN in one query's x is held to that query.  K1 and K4 run at the
 edges of their row-streaming core (one CTA's rows, fewer rows than SMs,
@@ -1106,3 +1107,39 @@ def test_dry_run_predicts_the_card_train_step(cuda):
     assert real.counter.dot_flops == pred.counter.dot_flops > 0
     assert real.counter.n_dots == pred.counter.n_dots
     assert torch.isfinite(real.out[2]["loss"])
+
+
+def test_a_span_encloses_its_kernel_on_the_profile_clock(cuda):
+    """The registry's span records (``time.monotonic_ns``) and the
+    profiler's device timeline share one clock once the profile's start
+    (wall clock) is placed on ``monotonic_ns``: each of two spans, 2 ms of
+    host sleep on either side of a synchronized matmul, encloses its own
+    kernel and not the other's."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.registry import MetricsRegistry
+    reg = MetricsRegistry()
+    a = torch.randn(2048, 2048, device=cuda)
+    (a @ a).sum().item()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for name in ("first", "second"):
+            with reg.span(name):
+                time.sleep(0.002)
+                a @ a
+                torch.cuda.synchronize()
+                time.sleep(0.002)
+    start = (prof.profiler.kineto_results.trace_start_ns()
+             - (time.time_ns() - time.monotonic_ns()))
+    kernels = sorted((start + e.time_range.start * 1000,
+                      start + e.time_range.end * 1000)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False))
+    spans = [(r["start_ns"], r["end_ns"]) for r in reg.span_records]
+    inside = [[s + 1_000_000 < ks < ke < e - 1_000_000 for s, e in spans]
+              for ks, ke in kernels]
+    assert kernels and all(sum(row) == 1 for row in inside)
+    assert all(any(col) for col in zip(*inside))

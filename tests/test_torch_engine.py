@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from obs_parity import shared_events, shared_histograms
+
 from repro.graph import generators as jgen
 from repro.graph import transition as jtr
 from repro.obs import registry as jreg
@@ -360,9 +362,10 @@ def test_metrics_spans_counters_events(net):
     jd, td = jm.as_dict(), tm.as_dict()
     assert td["counters"] == jd["counters"]
     assert td["gauges"] == jd["gauges"]
-    assert set(td["histograms"]) == set(jd["histograms"])
-    assert [e["kind"] for e in tm.events] == [e["kind"] for e in jm.events]
-    for te, je in zip(tm.events, jm.events):
+    assert shared_histograms(td) == set(jd["histograms"])
+    tevents = shared_events(tm)
+    assert [e["kind"] for e in tevents] == [e["kind"] for e in jm.events]
+    for te, je in zip(tevents, jm.events):
         assert list(te) == list(je)
         if te["kind"] == "solve":
             assert te["precision"] == je["precision"]
@@ -423,7 +426,7 @@ def test_launcher_fails_when_ell_disagrees(monkeypatch):
     from repro_torch.launch import pagerank_run
     matvec = tengine._matvec
     monkeypatch.setattr(tengine, "_matvec",
-                        lambda b, ops, x: 1.1 * matvec(b, ops, x))
+                        lambda b, ops, x, *a: 1.1 * matvec(b, ops, x, *a))
     with pytest.raises(AssertionError):
         pagerank_run.run(["--nodes", "150", "--iters", "10",
                           "--device", "cpu"])

@@ -8,6 +8,8 @@ import torch
 
 import jax.numpy as jnp
 
+from obs_parity import shared_histograms
+
 from repro.graph import generators as jgen
 from repro.graph import transition as jtr
 from repro.obs import registry as jreg
@@ -235,7 +237,7 @@ def test_ppr_span_counter_and_bookkeeping_match_jax(net):
     jd, td = jm.as_dict(), tm.as_dict()
     assert td["counters"] == jd["counters"]
     assert td["counters"]["engine.ppr_queries"] == len(SEED_SETS)
-    assert set(td["histograms"]) == set(jd["histograms"])
+    assert shared_histograms(td) == set(jd["histograms"])
     assert [e for e in tm.events if e["kind"] == "span"][-1]["name"] == \
         "ppr"
     for name in ("_keys", "_outdeg", "_indeg"):

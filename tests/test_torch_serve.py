@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+from obs_parity import shared_histograms
+
 from repro.graph import generators as jgen
 from repro.obs import registry as jreg
 from repro.pagerank import PageRankEngine as JEngine
@@ -302,7 +304,7 @@ def test_serve_metrics_and_event_schema_match_jax(net, seed_sets):
         qe.query_batch(seed_sets[:2])
     jd, td = jm.as_dict(), tm.as_dict()
     assert td["counters"] == jd["counters"]
-    assert set(td["histograms"]) == set(jd["histograms"])
+    assert shared_histograms(td) == set(jd["histograms"])
     assert set(td["gauges"]) == set(jd["gauges"])
     jserve = [e for e in jm.events if e["kind"] == "serve"]
     tserve = [e for e in tm.events if e["kind"] == "serve"]
