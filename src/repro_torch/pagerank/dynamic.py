@@ -71,8 +71,7 @@ from repro_torch.graph.delta import GraphDelta, edge_keys
 from repro_torch.kernels.streaming_matvec import streaming_matvec
 from repro_torch.obs.trace import SolveTrace, instrumented_tol_loop
 from repro_torch.pagerank import distributed as dist
-from repro_torch.pagerank.engine import (PageRankEngine, _dedupe_edges,
-                                         _matvec)
+from repro_torch.pagerank.engine import PageRankEngine, _edge_set, _matvec
 from repro_torch.pagerank.landmarks import _key_slice
 from repro_torch.pagerank.precision import quantize_int8, rowmax_scales
 from repro_torch.pagerank.resilience import EngineSnapshot, make_solve_info
@@ -253,12 +252,9 @@ class DynamicPageRankEngine(PageRankEngine):
         self.symmetric = bool(symmetric)
         self._pr: torch.Tensor | None = None
         super().__init__(src, dst, n, **kw)
-        src, dst = _dedupe_edges(np.asarray(src), np.asarray(dst), self.n)
-        self._keys = edge_keys(src, dst, self.n)
-        self._rkeys = np.sort(np.asarray(dst, np.int64) * self.n
-                              + np.asarray(src, np.int64))
-        self._outdeg = np.bincount(src, minlength=self.n).astype(np.int64)
-        self._indeg = np.bincount(dst, minlength=self.n).astype(np.int64)
+        # the parent's edge set reversed: sorted dst * n + src
+        self._rkeys = _edge_set(self._keys % self.n, self._keys // self.n,
+                                self.n, self.device).keys
 
     # --------------------------- layout prep --------------------------- #
     def _prepare_layout(self, src: np.ndarray, dst: np.ndarray) -> None:

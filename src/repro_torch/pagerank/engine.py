@@ -37,15 +37,16 @@ iterations with no host sync; ``run_tol`` syncs once per
 :data:`repro_torch.obs.trace.CHUNK` steps (see :mod:`repro_torch.obs.trace`).
 The sharded tiers zero-pad N (and the PPR query axis) to what the mesh
 divides; pad entries never feed back into real ranks and results are
-sliced back to N.  Duplicate directed edges are collapsed up front so every
-tier sees the same graph; self-loops stay.  The engine runs on the card
-unless ``device`` (or the mesh) asks for the CPU.
+sliced back to N.  Duplicate directed edges are collapsed up front, by one
+sort on the engine's device, so every tier sees the same graph; self-loops
+stay.  The engine runs on the card unless ``device`` (or the mesh) asks for
+the CPU.
 """
 from __future__ import annotations
 
 import math
 import warnings
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -53,7 +54,6 @@ import torch.nn.functional as F
 
 from repro_torch.core import fabric_matvec as fm
 from repro_torch.core.fabric_matvec import P, ShardedTensor
-from repro_torch.graph import delta as delta_mod
 from repro_torch.graph import transition as tr
 from repro_torch.graph.sparse import BSRMatrix, ELLMatrix
 from repro_torch.kernels import ops as kops
@@ -148,12 +148,54 @@ def default_mesh(backend: str, device: str | torch.device,
     return make_mesh((r, ndev // r), ("row", "col"), devices)
 
 
-def _dedupe_edges(src: np.ndarray, dst: np.ndarray,
-                  n: int) -> tuple[np.ndarray, np.ndarray]:
-    """Collapse duplicate directed edges: the engine's contract is a *set*
-    of edges (a repeated (u, v) would inflate outdeg(u) in the dense
-    layout but add twice in CSR/ELL).  Self-loops are kept."""
-    return delta_mod.dedupe_directed(src, dst, n, drop_self_loops=False)
+class EdgeSet(NamedTuple):
+    """The engine's edge set on the host: the deduplicated edges (int32),
+    their sorted unique keys ``src * n + dst`` (int64) and the out- and
+    in-degree vectors (int64, length ``n``)."""
+    src: np.ndarray
+    dst: np.ndarray
+    keys: np.ndarray
+    outdeg: np.ndarray
+    indeg: np.ndarray
+
+
+def _device_ids(a, device: torch.device) -> torch.Tensor:
+    """Vertex ids on ``device`` as int64, uploaded in their own integer
+    width (half the bytes for int32)."""
+    a = np.asarray(a)
+    if a.dtype not in (np.int32, np.int64):
+        a = a.astype(np.int64)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device).long()
+
+
+def _edge_set(src, dst, n: int, device: torch.device,
+              metrics=None) -> EdgeSet:
+    """Collapse duplicate directed edges on ``device``: the engine's
+    contract is a *set* of edges (a repeated (u, v) would inflate outdeg(u)
+    in the dense layout but add twice in CSR/ELL); self-loops are kept.
+    One sort of the keys ``src * n + dst`` gives the edges, the keys and
+    both degree vectors, equal in value and dtype to
+    ``delta.dedupe_directed(..., drop_self_loops=False)``,
+    ``delta.edge_keys`` and ``np.bincount``.  The span ``prepare.dedupe``
+    (fields ``device``, ``edges_in``, ``edges_dropped``) covers the
+    upload, the sort and the split, up to the edges on the host;
+    ``prepare.keys`` the degree counts and the keys' copy to the host."""
+    m = metrics if metrics is not None else NullRegistry()
+    with m.span("prepare.dedupe", device=str(device)) as fields:
+        keys = _device_ids(src, device) * n + _device_ids(dst, device)
+        edges_in = keys.numel()
+        keys = torch.unique(keys, sorted=True)
+        s = torch.div(keys, n, rounding_mode="floor").to(torch.int32)
+        d = torch.remainder(keys, n).to(torch.int32)
+        src, dst = s.cpu().numpy(), d.cpu().numpy()
+        if fields is not None:              # None from a NullRegistry
+            fields["edges_in"] = edges_in
+            fields["edges_dropped"] = edges_in - len(src)
+    with m.span("prepare.keys"):
+        outdeg = torch.bincount(s, minlength=n).cpu().numpy()
+        indeg = torch.bincount(d, minlength=n).cpu().numpy()
+        keys = keys.cpu().numpy()
+    return EdgeSet(src, dst, keys, outdeg, indeg)
 
 
 def _split_ell(csr, n: int, k0: int | None = None):
@@ -396,17 +438,13 @@ class PageRankEngine:
         self.metrics = metrics if metrics is not None else default_registry()
         m = self.metrics
         with m.span("prepare") as fields:
-            with m.span("prepare.dedupe"):
-                src, dst = _dedupe_edges(np.asarray(src), np.asarray(dst), n)
-            self.n_edges = int(len(src))
-            self.density = self.n_edges / float(n * n)
             # host edge-set bookkeeping (sorted src*n+dst keys + degree
             # vectors): the landmark index (repro_torch.pagerank.landmarks)
             # reads hub degrees and out-neighborhoods off the engine
-            with m.span("prepare.keys"):
-                self._keys = delta_mod.edge_keys(src, dst, n)
-                self._outdeg = np.bincount(src, minlength=n).astype(np.int64)
-                self._indeg = np.bincount(dst, minlength=n).astype(np.int64)
+            src, dst, self._keys, self._outdeg, self._indeg = _edge_set(
+                src, dst, n, dev, m)
+            self.n_edges = int(len(src))
+            self.density = self.n_edges / float(n * n)
             if backend == "auto":
                 backend = select_backend(
                     n, self.density, device=dev,
