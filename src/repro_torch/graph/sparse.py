@@ -4,8 +4,10 @@ Three formats, as in ``repro.graph.sparse``, each built in numpy exactly as
 the JAX container builds it (so the arrays are bit-identical) and only then
 placed on a device:
 
-* :class:`CSRMatrix` — host/reference format and the source of the
-  engine's split-ELL layout.
+* :class:`CSRMatrix` — host/reference format; the engine's ``ell`` tiers
+  build the same container on their device
+  (``repro_torch.pagerank.engine._transition_csr``) as the source of their
+  layouts.
 * :class:`ELLMatrix` — fixed nonzeros-per-row padding; SpMV is a dense
   gather and a rowwise sum.
 * :class:`BSRMatrix` — block-sparse rows with dense (bs x bs) blocks, the
@@ -72,6 +74,12 @@ class CSRMatrix:
         rows = np.repeat(np.arange(self.shape[0]), counts)
         pos = np.arange(rows.size) - np.repeat(indptr[:-1], counts)
         return rows, pos
+
+    def to(self, device: str | torch.device) -> "CSRMatrix":
+        """The same matrix on ``device``."""
+        return dataclasses.replace(
+            self, data=self.data.to(device), indices=self.indices.to(device),
+            indptr=self.indptr.to(device), row_ids=self.row_ids.to(device))
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x.  The row sums go through ``index_add_``, which on a

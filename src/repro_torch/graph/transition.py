@@ -2,9 +2,12 @@
 
 ``H[i, j] = 1 / outdeg(j)`` when there is an edge j -> i (column-stochastic).
 Dangling nodes (outdeg 0) get uniform columns ``1/N`` when the fix is on.
-Every layout is built in numpy exactly as ``repro.graph.transition`` builds
-it, so the two packages' layouts are bit-identical, and only then placed on
-the requested device.
+Every layout here is built in numpy exactly as ``repro.graph.transition``
+builds it, so the two packages' layouts are bit-identical, and only then
+placed on the requested device.  The engine's ``ell`` tiers build the
+transition CSR and the split ELL on their own device
+(``repro_torch.pagerank.engine``) to the same bits; these functions are
+their host reference.
 """
 from __future__ import annotations
 

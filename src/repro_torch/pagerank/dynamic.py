@@ -257,7 +257,8 @@ class DynamicPageRankEngine(PageRankEngine):
                                 self.n, self.device).keys
 
     # --------------------------- layout prep --------------------------- #
-    def _prepare_layout(self, src: np.ndarray, dst: np.ndarray) -> None:
+    def _prepare_layout(self, src: np.ndarray, dst: np.ndarray,
+                        edges=None) -> None:
         if self.backend == "ell_sharded":
             # patch headroom: the engine takes ``_ell_k`` as a minimum row
             # capacity, so maxdeg + slack keeps every shape fixed across
@@ -265,14 +266,14 @@ class DynamicPageRankEngine(PageRankEngine):
             indeg = np.bincount(np.asarray(dst, np.int64), minlength=self.n)
             maxdeg = int(indeg.max()) if len(indeg) else 0
             self._ell_k = maxdeg + max(4, self._slack)
-            super()._prepare_layout(src, dst)
+            super()._prepare_layout(src, dst, edges)
             return
         if self.backend == "bsr":
-            super()._prepare_layout(src, dst)
+            super()._prepare_layout(src, dst, edges)
             self._bsr_index(src, dst)
             return
         if self.backend != "ell":
-            super()._prepare_layout(src, dst)
+            super()._prepare_layout(src, dst, edges)
             return
         n = self.n
         self._dang = self._put(tr.dangling_mask(src, n).astype(np.float32))

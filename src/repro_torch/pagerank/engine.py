@@ -39,11 +39,13 @@ The sharded tiers zero-pad N (and the PPR query axis) to what the mesh
 divides; pad entries never feed back into real ranks and results are
 sliced back to N.  Duplicate directed edges are collapsed up front, by one
 sort on the engine's device, so every tier sees the same graph; self-loops
-stay.  The engine runs on the card unless ``device`` (or the mesh) asks for
-the CPU.
+stay.  The ``ell`` tiers build their transition CSR from that edge set on
+the same device.  The engine runs on the card unless ``device`` (or the
+mesh) asks for the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import warnings
 from typing import NamedTuple, Sequence
@@ -55,7 +57,7 @@ import torch.nn.functional as F
 from repro_torch.core import fabric_matvec as fm
 from repro_torch.core.fabric_matvec import P, ShardedTensor
 from repro_torch.graph import transition as tr
-from repro_torch.graph.sparse import BSRMatrix, ELLMatrix
+from repro_torch.graph.sparse import BSRMatrix, CSRMatrix, ELLMatrix
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.common import resolve_device, upcast_f32
 from repro_torch.kernels.pagerank_step import (pad_pagerank_operands,
@@ -148,15 +150,27 @@ def default_mesh(backend: str, device: str | torch.device,
     return make_mesh((r, ndev // r), ("row", "col"), devices)
 
 
+class DeviceEdges(NamedTuple):
+    """The engine's edge set on its device, for the layout build: the
+    deduplicated edges (integer ids) and the out- and in-degree vectors
+    (int64, length ``n``)."""
+    src: torch.Tensor
+    dst: torch.Tensor
+    outdeg: torch.Tensor
+    indeg: torch.Tensor
+
+
 class EdgeSet(NamedTuple):
     """The engine's edge set on the host: the deduplicated edges (int32),
     their sorted unique keys ``src * n + dst`` (int64) and the out- and
-    in-degree vectors (int64, length ``n``)."""
+    in-degree vectors (int64, length ``n``); ``on_device`` holds the same
+    edges and degrees on the engine's device."""
     src: np.ndarray
     dst: np.ndarray
     keys: np.ndarray
     outdeg: np.ndarray
     indeg: np.ndarray
+    on_device: DeviceEdges
 
 
 def _device_ids(a, device: torch.device) -> torch.Tensor:
@@ -168,6 +182,12 @@ def _device_ids(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device).long()
 
 
+def _device_edges(s: torch.Tensor, d: torch.Tensor, n: int) -> DeviceEdges:
+    """Deduplicated edges on their device, with their degree vectors."""
+    return DeviceEdges(s, d, torch.bincount(s, minlength=n),
+                       torch.bincount(d, minlength=n))
+
+
 def _edge_set(src, dst, n: int, device: torch.device,
               metrics=None) -> EdgeSet:
     """Collapse duplicate directed edges on ``device``: the engine's
@@ -176,10 +196,11 @@ def _edge_set(src, dst, n: int, device: torch.device,
     One sort of the keys ``src * n + dst`` gives the edges, the keys and
     both degree vectors, equal in value and dtype to
     ``delta.dedupe_directed(..., drop_self_loops=False)``,
-    ``delta.edge_keys`` and ``np.bincount``.  The span ``prepare.dedupe``
-    (fields ``device``, ``edges_in``, ``edges_dropped``) covers the
-    upload, the sort and the split, up to the edges on the host;
-    ``prepare.keys`` the degree counts and the keys' copy to the host."""
+    ``delta.edge_keys`` and ``np.bincount``, and kept on ``device`` besides.
+    The span ``prepare.dedupe`` (fields ``device``, ``edges_in``,
+    ``edges_dropped``) covers the upload, the sort and the split, up to the
+    edges on the host; ``prepare.keys`` the degree counts and the keys'
+    copy to the host."""
     m = metrics if metrics is not None else NullRegistry()
     with m.span("prepare.dedupe", device=str(device)) as fields:
         keys = _device_ids(src, device) * n + _device_ids(dst, device)
@@ -192,31 +213,57 @@ def _edge_set(src, dst, n: int, device: torch.device,
             fields["edges_in"] = edges_in
             fields["edges_dropped"] = edges_in - len(src)
     with m.span("prepare.keys"):
-        outdeg = torch.bincount(s, minlength=n).cpu().numpy()
-        indeg = torch.bincount(d, minlength=n).cpu().numpy()
+        on_device = _device_edges(s, d, n)
+        outdeg = on_device.outdeg.cpu().numpy()
+        indeg = on_device.indeg.cpu().numpy()
         keys = keys.cpu().numpy()
-    return EdgeSet(src, dst, keys, outdeg, indeg)
+    return EdgeSet(src, dst, keys, outdeg, indeg, on_device)
 
 
-def _split_ell(csr, n: int, k0: int | None = None):
-    """Split-ELL layout in numpy from the host transition CSR: a per-row
-    budget ``k0`` (the 90th degree percentile by default) plus a COO
-    overflow tail for the power-law hub rows.  Returns ``((data, idx,
-    ov_r, ov_c, ov_v), k0, overflow_nnz)``."""
-    counts = np.diff(csr.indptr.numpy())
+def _transition_csr(edges: DeviceEdges, n: int) -> CSRMatrix:
+    """``tr.build_transition_csr`` on the edges' device, bit for bit.  H's
+    rows are ``dst`` and its columns ``src``, so its row-major order is
+    that of the transposed keys ``dst * n + src``: unique in an edge set,
+    so one plain sort.  Values ``1 / outdeg[src]`` in float32, ``indptr``
+    the cumulative in-degrees; rows, columns and ``indptr`` int32."""
+    keys = torch.sort(edges.dst.long() * n + edges.src.long()).values
+    rows = torch.div(keys, n, rounding_mode="floor")
+    cols = keys - rows * n
+    del keys
+    vals = torch.reciprocal(edges.outdeg.float())[cols]
+    indptr = F.pad(torch.cumsum(edges.indeg, 0), (1, 0))
+    return CSRMatrix(vals, cols.int(), indptr.int(), rows.int(),
+                     shape=(n, n))
+
+
+def _scatter(values: torch.Tensor, at: torch.Tensor,
+             size: int) -> torch.Tensor:
+    """A zero vector of ``size`` with ``values`` written at ``at``; an
+    entry aimed at ``size`` lands in a spare slot past the end and is
+    dropped (the only slot written twice)."""
+    out = values.new_zeros(size + 1).index_put_((at,), values)
+    return out[:size]
+
+
+def _split_ell(csr: CSRMatrix, k0: int | None = None):
+    """Split-ELL layout on the CSR's device: a per-row budget ``k0`` (the
+    90th percentile of the row counts, read on the host, by default) plus a
+    COO overflow tail for the power-law hub rows, the entries past ``k0``
+    in the CSR's row-major order.  Returns ``((data, idx, ov_r, ov_c,
+    ov_v), k0, overflow_nnz)``, float32 values and int32 indices."""
+    n = csr.shape[0]
     if k0 is None:
+        counts = np.diff(csr.indptr.cpu().numpy())
         k0 = max(4, int(np.percentile(counts, 90))) if len(counts) else 4
-    cols = csr.indices.numpy()
-    vals = csr.data.numpy()
-    rows, pos = csr.row_positions()
+    rows = csr.row_ids.long()
+    pos = torch.arange(csr.nnz, device=rows.device) - csr.indptr.long()[rows]
     in_ell = pos < k0
-    data = np.zeros((n, k0), np.float32)
-    idx = np.zeros((n, k0), np.int32)
-    data[rows[in_ell], pos[in_ell]] = vals[in_ell]
-    idx[rows[in_ell], pos[in_ell]] = cols[in_ell]
-    ov = ~in_ell
-    return (data, idx, rows[ov].astype(np.int32), cols[ov].astype(np.int32),
-            vals[ov].astype(np.float32)), k0, int(ov.sum())
+    at = torch.where(in_ell, rows * k0 + pos, n * k0)
+    data = _scatter(csr.data, at, n * k0).view(n, k0)
+    idx = _scatter(csr.indices, at, n * k0).view(n, k0)
+    ov = torch.nonzero(~in_ell).squeeze(1)     # ascending: row-major
+    return ((data, idx, csr.row_ids[ov], csr.indices[ov], csr.data[ov]), k0,
+            int(ov.numel()))
 
 
 def _row_scale(y: torch.Tensor, scales: torch.Tensor | None) -> torch.Tensor:
@@ -441,8 +488,8 @@ class PageRankEngine:
             # host edge-set bookkeeping (sorted src*n+dst keys + degree
             # vectors): the landmark index (repro_torch.pagerank.landmarks)
             # reads hub degrees and out-neighborhoods off the engine
-            src, dst, self._keys, self._outdeg, self._indeg = _edge_set(
-                src, dst, n, dev, m)
+            edges = _edge_set(src, dst, n, dev, m)
+            src, dst, self._keys, self._outdeg, self._indeg = edges[:5]
             self.n_edges = int(len(src))
             self.density = self.n_edges / float(n * n)
             if backend == "auto":
@@ -454,7 +501,7 @@ class PageRankEngine:
             self._init_common(n, d, backend, precision, dev, metrics, mesh)
             self._ell_k = ell_k
             self._bsr_block_size = int(bsr_block_size)
-            self._prepare_layout(src, dst)
+            self._prepare_layout(src, dst, edges.on_device)
 
     def _init_common(self, n, d, backend, precision, device, metrics,
                      mesh=None) -> None:
@@ -555,41 +602,62 @@ class PageRankEngine:
         return (f"ell_sharded(k={k}, shards={self.mesh.size}, "
                 f"n_pad={self._n_pad})")
 
-    def _prepare_layout(self, src: np.ndarray, dst: np.ndarray) -> None:
+    def _prepare_layout(self, src: np.ndarray, dst: np.ndarray,
+                        edges: DeviceEdges | None = None) -> None:
         """Build the backend's prepared device layout from a deduplicated
-        COO edge list: in numpy first, as the JAX package builds it (the
-        ``ell`` tiers' transition CSR in the span ``prepare.csr``, the
-        rest of the host build in ``prepare.pack``), then placed on the
-        device (``prepare.upload``, ending in a synchronize unless the
-        registry is a :class:`NullRegistry`)."""
-        m = self.metrics
+        COO edge list.  The ``ell`` tiers build their transition CSR on the
+        engine's device from ``edges`` (the edge list uploaded where none
+        is given), in the span ``prepare.csr``; ``prepare.pack`` holds the
+        rest of the build: ``ell``'s split ELL on the device,
+        ``ell_sharded``'s full-width rows and the other tiers' layouts in
+        numpy, as the JAX package builds them.  ``prepare.upload`` places
+        what the pack left on the host.  Each phase ends in a synchronize
+        unless the registry is a :class:`NullRegistry`."""
         self._mv_backend = self.backend
         self.layout = self.backend
         self._scales = None
         csr = None
         if self.backend in ("ell", "ell_sharded"):
-            with m.span("prepare.csr"):
-                csr = tr.build_transition_csr(src, dst, self.n, device="cpu")
-        with m.span("prepare.pack"):
-            dang = tr.dangling_mask(src, self.n).astype(np.float32)
+            with self._phase("prepare.csr"):
+                if edges is None:
+                    edges = _device_edges(_device_ids(src, self.device),
+                                          _device_ids(dst, self.device),
+                                          self.n)
+                csr = _transition_csr(edges, self.n)
+        with self._phase("prepare.pack"):
+            if self.backend == "ell":
+                dang = (edges.outdeg == 0).float()
+            else:
+                dang = tr.dangling_mask(src, self.n).astype(np.float32)
             host = self._pack(src, dst, dang, csr)
-        with m.span("prepare.upload"):
+        del edges, csr
+        with self._phase("prepare.upload"):
             self._upload(host, dang)
-            if not isinstance(m, NullRegistry):
-                self._synchronize()
         if self.precision != "f32":
             self.layout = f"{self.layout}[{self.precision}]"
         self._record_layout_bytes()
 
-    def _pack(self, src: np.ndarray, dst: np.ndarray, dang: np.ndarray,
-              csr) -> tuple:
-        """The tier's layout on the host (numpy arrays; CPU tensors on
-        ``fused_dense``), quantized there where the tier stores int8."""
+    @contextlib.contextmanager
+    def _phase(self, name: str):
+        """The span ``name`` around one phase of the layout build.  With a
+        recording registry the phase ends once the engine's cards have
+        done its work, so none of its device time falls into a later
+        phase; a :class:`NullRegistry` adds no wait."""
+        with self.metrics.span(name):
+            yield
+            if not isinstance(self.metrics, NullRegistry):
+                self._synchronize()
+
+    def _pack(self, src: np.ndarray, dst: np.ndarray, dang, csr) -> tuple:
+        """The tier's layout: on ``ell`` the device operands in the storage
+        dtype, on the other tiers the host layout (numpy arrays; CPU
+        tensors on ``fused_dense``), quantized there where the tier stores
+        int8."""
         n = self.n
         if self.backend == "ell":
-            ops, k0, ov_nnz = _split_ell(csr, n, k0=self._ell_k)
+            ops, k0, ov_nnz = _split_ell(csr, k0=self._ell_k)
             self.layout = f"ell(k0={k0})+overflow(nnz={ov_nnz})"
-            return ops
+            return self._quantize_split_ell(ops)
         if self.backend == "bsr":
             return self._pack_bsr(src, dst)
         if self.backend in SHARDED_BACKENDS:
@@ -616,15 +684,16 @@ class PageRankEngine:
                 dangp, scales)
 
     def _upload(self, host: tuple, dang: np.ndarray) -> None:
-        """Place :meth:`_pack`'s host layout on the engine's device (on
-        the mesh for the sharded tiers)."""
+        """Place :meth:`_pack`'s layout on the engine's device (on the
+        mesh for the sharded tiers)."""
         if self.backend in SHARDED_BACKENDS:
             self._upload_sharded(host, dang)
             return
+        if self.backend == "ell":               # built on the device
+            self._operands, self._dang = host, dang
+            return
         self._dang = self._put(dang)
-        if self.backend == "ell":
-            self._operands = self._quantize_split_ell(host)
-        elif self.backend == "bsr":
+        if self.backend == "bsr":
             self._operands = (self._upload_bsr(host),)
         elif self.backend == "dense":
             self._operands = (
@@ -650,10 +719,10 @@ class PageRankEngine:
                       csr) -> tuple:
         """The two mesh layouts, built in numpy at the padded N.
         ``dense_sharded``: H dangling-UNFIXED (explicit leak).
-        ``ell_sharded``: full-K ELL rows, where ``ell_k`` is a minimum row
-        capacity and never a truncation (the dynamic engine passes
-        ``maxdeg + slack``).  Returns ``(vals, idx or None, int8 scales or
-        None, k or None)``."""
+        ``ell_sharded``: full-K ELL rows from the transition CSR, read on
+        the host, where ``ell_k`` is a minimum row capacity and never a
+        truncation (the dynamic engine passes ``maxdeg + slack``).  Returns
+        ``(vals, idx or None, int8 scales or None, k or None)``."""
         n, n_pad = self.n, self._n_pad
         if self.backend == "dense_sharded":
             vals = np.zeros((n_pad, n_pad), np.float32)
@@ -661,6 +730,7 @@ class PageRankEngine:
                                                   fix_dangling=False)
             idx = k = None
         else:
+            csr = csr.to("cpu")
             counts = np.diff(csr.indptr.numpy())
             maxdeg = int(counts.max()) if len(counts) else 0
             k = maxdeg if self._ell_k is None else max(int(self._ell_k),
@@ -723,22 +793,19 @@ class PageRankEngine:
                          row_scales=self._put(scales))
 
     def _quantize_split_ell(self, ops: tuple) -> tuple:
-        """Place a numpy split-ELL layout on the device in the storage
-        dtype.  int8 scales are computed over the FULL row — the ELL
-        block's entries and the overflow tail share the row's abs-max — and
-        appended as a sixth operand."""
+        """A split-ELL layout in the storage dtype, on its device.  int8
+        scales are computed over the FULL row — the ELL block's entries
+        and the overflow tail share the row's abs-max — and appended as a
+        sixth operand."""
         data, idx, ov_r, ov_c, ov_v = ops
         if self.precision != "int8":
-            return (self._put(data).to(self.storage_dtype), self._put(idx),
-                    self._put(ov_r), self._put(ov_c),
-                    self._put(ov_v).to(self.storage_dtype))
-        absmax = np.abs(data).max(axis=1, initial=0.0)
-        np.maximum.at(absmax, ov_r, np.abs(ov_v))
+            return (data.to(self.storage_dtype), idx, ov_r, ov_c,
+                    ov_v.to(self.storage_dtype))
+        absmax = data.abs().amax(dim=1).scatter_reduce(
+            0, ov_r.long(), ov_v.abs(), "amax")
         scales = rowmax_scales(absmax)
-        return (self._put(quantize_int8(data, scales[:, None])),
-                self._put(idx), self._put(ov_r), self._put(ov_c),
-                self._put(quantize_int8(ov_v, scales[ov_r])),
-                self._put(scales))
+        return (quantize_int8(data, scales[:, None]), idx, ov_r, ov_c,
+                quantize_int8(ov_v, scales[ov_r]), scales)
 
     def _record_layout_bytes(self) -> None:
         """Operand-byte accounting of the prepared layout, exported as the

@@ -13,7 +13,8 @@ Every prepared layout carries a ``precision`` dimension:
 The rank vector, the dangling mask, residuals, and all loop carries stay
 float32 in every tier — only the prepared operand values shrink.  The
 quantizer runs in numpy, exactly as in ``repro.pagerank.precision``, so the
-two packages' quantized layouts are bit-identical.
+two packages' quantized layouts are bit-identical; handed torch tensors, it
+runs on their device with the same bits.
 """
 from __future__ import annotations
 
@@ -82,6 +83,12 @@ def rowmax_scales(absmax: np.ndarray) -> np.ndarray:
     """Per-row int8 dequantization scales from per-row abs-maxima:
     ``s = rowmax / 127`` so the largest entry maps to ±127; all-zero rows
     get scale 1.0 (their quantized entries are 0 regardless)."""
+    if isinstance(absmax, torch.Tensor):
+        absmax = absmax.float()
+        # a tensor divisor: CUDA divides by a Python scalar as a product
+        # with its reciprocal, which can miss numpy's quotient by an ulp
+        d = torch.full((), 127.0, device=absmax.device)
+        return torch.where(absmax > 0, absmax / d, 1.0)
     absmax = np.asarray(absmax, np.float32)
     return np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
 
@@ -90,6 +97,9 @@ def quantize_int8(vals: np.ndarray, scales: np.ndarray) -> np.ndarray:
     """Round-to-nearest int8 quantization ``q = clip(rint(v / s), ±127)``.
     ``scales`` must broadcast against ``vals`` (pre-expanded to the row
     axis by the caller)."""
+    if isinstance(vals, torch.Tensor):      # round: half to even, as rint
+        q = torch.round(vals.float() / scales)
+        return q.clamp_(-127, 127).to(torch.int8)
     q = np.rint(np.asarray(vals, np.float32) / scales)
     return np.clip(q, -127, 127).astype(np.int8)
 

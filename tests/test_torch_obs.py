@@ -3,7 +3,8 @@ records nest by parent id on ``time.monotonic_ns`` and stay bounded,
 ``annotate`` and the :class:`NullRegistry` record nothing, and the
 engine's constructor and ``ell`` steps carry their phases (the five
 children of ``prepare`` on every single-device tier and the sharded
-ones, ``engine.run`` and the step ranges in a profile) with results
+ones, each of the layout build's phases ending in a wait for its device
+work, ``engine.run`` and the step ranges in a profile) with results
 bit-identical to an untraced engine."""
 import time
 
@@ -198,7 +199,30 @@ def test_only_a_recording_registry_waits_for_the_upload(graph, monkeypatch):
     assert waits == []
     PageRankEngine(src, dst, n, backend="ell", device="cpu",
                    metrics=MetricsRegistry())
-    assert waits == ["ell"]
+    assert waits == ["ell"] * 3         # prepare.csr, .pack and .upload
+
+
+@pytest.mark.parametrize("backend,shape", TIERS, ids=[t for t, _ in TIERS])
+def test_each_phase_of_the_layout_build_ends_in_a_wait(graph, monkeypatch,
+                                                        backend, shape):
+    """A phase's device work is done before its span closes, so none of it
+    falls into a later phase."""
+    n, src, dst = graph
+    waits = []
+    monkeypatch.setattr(PageRankEngine, "_synchronize",
+                        lambda self: waits.append(time.monotonic_ns()))
+    mesh = None
+    if shape is not None:
+        axes = ("row", "col") if len(shape) == 2 else ("shard",)
+        mesh = make_mesh(shape, axes, ["cpu"] * int(np.prod(shape)))
+    reg = MetricsRegistry()
+    PageRankEngine(src, dst, n, backend=backend, device="cpu", mesh=mesh,
+                   metrics=reg)
+    phases = [r for r in reg.span_records if r["name"] in PHASES[2:]]
+    assert len(waits) == len(phases) == (
+        3 if backend in ("ell", "ell_sharded") else 2)
+    for t, r in zip(waits, phases):
+        assert r["start_ns"] <= t <= r["end_ns"]
 
 
 @pytest.mark.parametrize("backend", ["ell", "bsr"])
