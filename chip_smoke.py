@@ -168,6 +168,12 @@ result line):
    count the cheapest float32-accurate split product on the tensor cores
    (``SPLIT_SCHEMES``), K2's launches are those of its batch size on the
    paths above, by step);
+   the split-ELL step of the ``ell`` tier at the ``graph500_22.solve``
+   cell's shapes (scale 20, seed 0) at every storage type
+   (:func:`ell_step_phase`: the layout's fill, the step against its plain
+   version, ``run(10)`` bit for bit with its launches, flushed / warm /
+   eager-call times beside its byte bound, the plain version, the eager
+   step it replaced and ``torch.sparse_csr @ x``);
    the serve flush's p50 / p95 and the landmark build time;
    ``run(100)`` and ``run_tol`` on every tier, ``bsr`` included; and the
    two paths K3 serves at B >= 8, each with its exact K3 launch count:
@@ -248,6 +254,8 @@ K3_SOURCE = "src/repro_torch/kernels/csrc/bsr_spmv.cu"
 K3_REPLACES = "src/repro/kernels/bsr_spmv.py:29"
 K4_SOURCE = K1_SOURCE
 K4_REPLACES = "src/repro/kernels/pagerank_step.py:35"
+ELL_SOURCE = "src/repro_torch/kernels/csrc/ell_step.cu"
+ELL_REPLACES = "none: the JAX ell tier reaches no Pallas call"
 # the live phase: examples/streaming_pagerank.py's stream and tick count
 STREAM = dict(m_edges=4, seed=0, insert_per_step=6, delete_per_step=4)
 TICKS, QUERIES_PER_TICK = 16, 4
@@ -798,6 +806,175 @@ def wall_stats(torch, fn, *, rounds: int = 5) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
     return {"median_ms": statistics.median(times), "min_ms": min(times),
             "max_ms": max(times)}
+
+
+def ell_instantiations(log: str) -> dict:
+    """The split-ELL kernels in their build log: (pass, storage type, row
+    scales) -> registers and spills."""
+    out = {}
+    for fn, info in ptxas_report(log).items():
+        m = re.search(r"(overflow|rows)_kernelI(\w+?)(?:Lb([01])E)?EEv", fn)
+        if m:
+            out[(m.group(1), K3_TYPES[m.group(2)], m.group(3) == "1")] = info
+    return out
+
+
+def eager_cold_ms(torch, fn, flush, *, samples: int = 7) -> float:
+    """One call issued eagerly between two events right after an L2 flush
+    (for calls a CUDA graph cannot hold: the gaps of their host syncs are
+    counted); the median of ``samples``."""
+    times = []
+    for _ in range(samples):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def ell_step_phase(np, torch, dev, card, flush=None) -> dict:
+    """The split-ELL kernel at the ``graph500_22.solve`` cell's shapes
+    (``perfbench/configs/graph500_22.json``, seed 0), at every storage
+    type: the layout's fill; one step against its plain version (rtol
+    1e-5, atol 1e-7) and bit-identical on a second call; ``run(10)``
+    repeated bit for bit with 10 x 2 launches; one step flushed, warm and
+    as an eager call beside its byte bound (each real entry's value and
+    index, the metadata, x, dang, the new vector and the int8 scales, once
+    each), the eager step it replaced (``_matvec`` + ``sparse_step``)
+    flushed, and, issued eagerly after a flush, the plain version (its
+    host syncs' gaps included) and in float32 ``torch.sparse_csr`` times
+    x, the library yardstick the port never calls.  Returns the measurements and
+    the kernel table's rows.  Alone, from the repository root:
+    ``PYTHONPATH=src python3 -c "import numpy as np, torch, chip_smoke;
+    chip_smoke.ell_step_phase(np, torch, torch.device('cuda'),
+    chip_smoke.nvidia_smi())"``."""
+    from perfbench.graphs import kronecker
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ell_step as ell
+    from repro_torch.obs.registry import NullRegistry
+    from repro_torch.pagerank import PageRankEngine
+    from repro_torch.pagerank.engine import _matvec
+    from repro_torch.pagerank.steps import sparse_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    if flush is None:
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    regs = ell_instantiations(_build.build_all()["logs"]["ell_step"])
+    cfg = json.loads((ROOT / "perfbench" / "configs"
+                      / "graph500_22.json").read_text())
+    g = kronecker.make(cfg, 0, dev)
+    out, rows = {"card": card}, []
+    for p in PRECISIONS:
+        eng = PageRankEngine(g.src, g.dst, g.n, d=cfg["d"], backend="ell",
+                             precision=p, device=dev, metrics=NullRegistry())
+        ops, meta, dang = eng.operands, eng._ell_meta, eng._dang
+        n, k0 = ops[0].shape
+        E, R = ops[4].numel(), meta.ov_rows.numel()
+        real = int(meta.counts.sum())
+        if p == "f32":
+            out["layout"] = {
+                "n": n, "k0": k0, "ell_slots": n * k0, "ell_entries": real,
+                "ell_fill": real / (n * k0), "overflow_entries": E,
+                "overflow_rows": R, "overflow_share": E / (E + real),
+                "chunks": meta.chunk_row.numel() - 1,
+                "longest_overflow": int(meta.ov_ptr.diff().max()),
+                "meta_bytes": meta.nbytes,
+                "layout_bytes": eng.layout_bytes["total_bytes"]}
+            print(f"  graph500_22 at scale {cfg['scale']}, seed 0: n {n}, "
+                  f"k0 {k0}; {real} of {n * k0} ELL slots real "
+                  f"({real / (n * k0):.1%}), {E} overflow entries "
+                  f"({E / (E + real):.1%} of all) in {R} rows, the longest "
+                  f"{out['layout']['longest_overflow']}; metadata "
+                  f"{meta.nbytes} bytes beside {out['layout']['layout_bytes']}"
+                  " of operands")
+        x = eng.run(10)
+        leak = torch.sum(x * dang)
+
+        def kernel():
+            return ell.ell_step(ops, meta, dang, x, leak, d=eng.d)
+
+        def plain():
+            return ell.ell_step_ref(ops, meta, dang, x, leak, d=eng.d)
+
+        def eager():
+            return sparse_step(lambda v: _matvec("ell", ops, v), x, dang,
+                               eng.d, n)
+
+        new, lk = kernel()
+        want, want_lk = plain()
+        torch.cuda.synchronize()
+        err = allclose(torch, new, want, rtol=1e-5, atol=1e-7,
+                       what=f"ell_step {p} vs its plain version")
+        allclose(torch, lk, want_lk, rtol=1e-5, atol=1e-7,
+                 what=f"ell_step {p} leak vs its plain version")
+        again = kernel()
+        check(bool(torch.equal(again[0], new) and torch.equal(again[1], lk)),
+              f"ell_step {p}: two calls are not bit-identical")
+        before = ell.launches[p]
+        pr = eng.run(10)
+        torch.cuda.synchronize()
+        run_launches = ell.launches[p] - before
+        check(run_launches == 20, f"run(10) {p}: {run_launches} launches")
+        check(bool(torch.equal(eng.run(10), pr)),
+              f"run(10) {p}: two solves are not bit-identical")
+        ms = cuda_ms_cold(torch, kernel, flush)
+        warm_ms = cuda_ms(torch, kernel)
+        call_ms = eager_ms(torch, kernel)
+        plain_ms = eager_cold_ms(torch, plain, flush)
+        eager_step_ms = cuda_ms_cold(torch, eager, flush)
+        library_ms = None
+        if p == "f32":
+            keep = torch.arange(k0, device=dev)[None, :] < meta.counts[:, None]
+            r_ell = torch.nonzero(keep)[:, 0]
+            A = torch.sparse_coo_tensor(
+                torch.stack([torch.cat([r_ell, ops[2].long()]),
+                             torch.cat([ops[1][keep].long(),
+                                        ops[3].long()])]),
+                torch.cat([ops[0][keep], ops[4]]), (n, n)).coalesce()
+            A = A.to_sparse_csr()
+            library_ms = eager_cold_ms(torch, lambda: A @ x, flush)
+            del A
+        es = ops[0].element_size()
+        nbytes = ((real + E) * (es + 4) + meta.nbytes + 3 * 4 * n
+                  + (4 * n if len(ops) == 6 else 0))
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        scales = len(ops) == 6
+        info = {k: regs.get((k, p, scales if k == "rows" else False), {})
+                for k in ("overflow", "rows")}
+        rows.append({
+            "name": f"ell_step[{p}]", "route": "cuda", "source": ELL_SOURCE,
+            "replaces": ELL_REPLACES, "launches": run_launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": library_ms,
+            "library_call": "torch.sparse_csr @ x" if p == "f32" else None,
+            "eager_step_ms": eager_step_ms,
+            "ms_warm_l2": warm_ms, "ms_eager_call": call_ms,
+            "shape": [n, k0, E, R], "bytes": nbytes,
+            "registers": {k: v.get("registers") for k, v in info.items()},
+            "spills": {k: (v.get("spill_stores"), v.get("spill_loads"))
+                       for k, v in info.items()}})
+        print(f"  ell_step {p}: {ms * 1e3:.2f} us/step flushed, "
+              f"{warm_ms * 1e3:.2f} us warm, {call_ms * 1e3:.2f} us per "
+              f"eager call; bound {bound * 1e3:.2f} us ({nbytes} bytes, "
+              f"{bound / ms:.1%}); plain {plain_ms * 1e3:.2f} us (eager, "
+              f"its host syncs included); the eager step it replaced "
+              f"{eager_step_ms * 1e3:.2f} us"
+              + ("" if library_ms is None else
+                 f"; torch.sparse_csr @ x {library_ms * 1e3:.2f} us")
+              + f"; max|diff| {err:.3e}; run(10) {run_launches} launches, "
+              f"repeats bit-identical; registers {rows[-1]['registers']}, "
+              f"spills {rows[-1]['spills']}")
+        del eng, ops, meta, dang, x, pr
+    out["rows"] = rows
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"ell_step_phase": out}))
+    return out
 
 
 def sharded_phase(np, torch, dev, src, dst, sets, card, flush) -> dict:
@@ -3788,8 +3965,11 @@ def main() -> int:
               + f"; {rows[-1]['config']}, {rows[-1]['registers']} registers, "
               f"{rows[-1]['spill_stores']} / {rows[-1]['spill_loads']} bytes "
               "spilled (stores / loads)")
+    print("the split-ELL step at the graph500_22.solve cell's shapes:")
+    ell_stats = ell_step_phase(np, torch, dev, card, flush)
     del flush
     rows.append(sharded_stats["k2_row"])
+    rows.extend(ell_stats["rows"])
 
     tiers = {"dense": dense, "ell": ell, "fused_dense": fused}
     tiers.update({f"fused_dense[{p}]": engines[p] for p in PRECISIONS[1:]})
@@ -3891,6 +4071,8 @@ def main() -> int:
                       "train": train_stats,
                       "mesh_lm": mesh_lm_stats,
                       "dryrun": dryrun_stats,
+                      "ell_step": {k: v for k, v in ell_stats.items()
+                                   if k != "rows"},
                       "k2_launches_by_step": {
                           step: {f"{p},B={b}": n for (p, b), n in c.items()}
                           for step, c in k2_steps.items()},

@@ -7,7 +7,10 @@ single-device tiers:
 * ``"dense"``       — dangling-fixed dense H (f32), ``H @ x`` sweeps.
 * ``"ell"``         — split ELLPACK: a tight per-row budget (``ell_k``,
   default the 90th degree percentile) plus a COO overflow tail for hub
-  rows.
+  rows.  On the card ``run`` and ``run_tol`` take each step in two
+  launches of the hand-written split-ELL kernel
+  (:func:`repro_torch.kernels.ell_step.ell_step`); the CPU and the batched
+  products keep the eager gathers.
 * ``"bsr"``         — block-sparse rows (``bsr_block_size`` blocks, 128 by
   default), H stored dangling-unfixed with the explicit leak; every
   product is one launch of the hand-written BSR kernel
@@ -60,6 +63,7 @@ from repro_torch.graph import transition as tr
 from repro_torch.graph.sparse import BSRMatrix, CSRMatrix, ELLMatrix
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.common import resolve_device, upcast_f32
+from repro_torch.kernels.ell_step import ell_meta, ell_step
 from repro_torch.kernels.pagerank_step import (pad_pagerank_operands,
                                                pagerank_step_fused)
 from repro_torch.kernels.streaming_matvec import streaming_matvec
@@ -332,12 +336,40 @@ def _uniform(n: int, device: torch.device) -> torch.Tensor:
     return torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
 
 
+def _on_ell_kernel(backend: str, x: torch.Tensor) -> bool:
+    """Whether a solve of ``x`` steps through the split-ELL kernel: one
+    vector on the card, on the ``ell`` layout."""
+    return backend == "ell" and x.device.type == "cuda" and x.dim() == 1
+
+
+def _ell_kernel_step(operands, meta, dang, d, metrics):
+    """One step of :func:`ell_step` on the carry ``(x, sum(x * dang))``,
+    in the range ``engine.step.combine`` around its passes' ranges
+    ``engine.step.overflow`` and ``engine.step.rows``."""
+    def ranges(part):
+        return metrics.annotate(f"engine.step.{part}")
+
+    def step(carry):
+        with metrics.annotate("engine.step.combine"):
+            return ell_step(operands, meta, dang, *carry, d=d,
+                            annotate=ranges)
+    return step
+
+
 def _run_fixed(operands, dang, d, *, backend: str, n: int, n_iters: int,
-               metrics):
+               metrics, meta=None):
     """``n_iters`` steps from the uniform vector; each step is the
     profiler range ``engine.step.combine``, around its product's
-    ranges."""
+    ranges.  On the card the ``ell`` layout steps through the split-ELL
+    kernel (``meta`` its :func:`ell_meta`), which keeps the leak on the
+    device."""
     pr = _uniform(n, dang.device)
+    if _on_ell_kernel(backend, pr):
+        step = _ell_kernel_step(operands, meta, dang, d, metrics)
+        carry = (pr, torch.sum(pr * dang))
+        for _ in range(n_iters):
+            carry = step(carry)
+        return carry[0]
     for _ in range(n_iters):
         with metrics.annotate("engine.step.combine"):
             pr = sparse_step(lambda v: _matvec(backend, operands, v, metrics),
@@ -346,8 +378,20 @@ def _run_fixed(operands, dang, d, *, backend: str, n: int, n_iters: int,
 
 
 def _run_tol(operands, dang, d, tol, x0, *, backend: str, n: int,
-             max_iters: int, watchdog: bool, trace: bool, metrics):
+             max_iters: int, watchdog: bool, trace: bool, metrics,
+             meta=None):
     pr0 = _uniform(n, dang.device) if x0 is None else x0
+    if _on_ell_kernel(backend, pr0):
+        kernel_step = _ell_kernel_step(operands, meta, dang, d, metrics)
+
+        def ell_step_res(carry):
+            new = kernel_step(carry)
+            return new, torch.sum(torch.abs(new[0] - carry[0]))
+
+        out = instrumented_tol_loop(
+            ell_step_res, (pr0, torch.sum(pr0 * dang)), tol=tol,
+            max_iters=max_iters, watchdog=watchdog, trace=trace)
+        return (out[0][0], *out[1:])
 
     def step(pr):
         with metrics.annotate("engine.step.combine"):
@@ -523,6 +567,8 @@ class PageRankEngine:
         self._n_pad = self.n
         self._ppr_operands: tuple | None = None
         self._ppr_scales = None
+        # the split-ELL kernel's metadata of an ell layout (ell_meta)
+        self._ell_meta = None
         if backend in SHARDED_BACKENDS:
             self.mesh = (mesh if mesh is not None
                          else default_mesh(backend, device))
@@ -571,6 +617,8 @@ class PageRankEngine:
         else:
             eng._operands = tuple(o.to(dev) for o in layout["operands"])
             eng._dang = layout["dang"].to(dev)
+            if backend == "ell":            # no counts: all k0 slots read
+                eng._ell_meta = ell_meta(eng._operands[2], n)
             if layout.get("scales") is not None:
                 eng._scales = layout["scales"].to(dev)
         if eng.precision != "f32":
@@ -650,13 +698,15 @@ class PageRankEngine:
 
     def _pack(self, src: np.ndarray, dst: np.ndarray, dang, csr) -> tuple:
         """The tier's layout: on ``ell`` the device operands in the storage
-        dtype, on the other tiers the host layout (numpy arrays; CPU
-        tensors on ``fused_dense``), quantized there where the tier stores
-        int8."""
+        dtype (and the split-ELL kernel's ``_ell_meta`` beside them), on
+        the other tiers the host layout (numpy arrays; CPU tensors on
+        ``fused_dense``), quantized there where the tier stores int8."""
         n = self.n
         if self.backend == "ell":
             ops, k0, ov_nnz = _split_ell(csr, k0=self._ell_k)
             self.layout = f"ell(k0={k0})+overflow(nnz={ov_nnz})"
+            self._ell_meta = ell_meta(
+                ops[2], n, torch.clamp(csr.indptr.diff(), max=k0))
             return self._quantize_split_ell(ops)
         if self.backend == "bsr":
             return self._pack_bsr(src, dst)
@@ -887,7 +937,8 @@ class PageRankEngine:
                                             n_iters=n_iters, d=self.d)
             return _run_fixed(self._operands, self._dang, self.d,
                               backend=self._mv_backend, n=self.n,
-                              n_iters=n_iters, metrics=self.metrics)
+                              n_iters=n_iters, metrics=self.metrics,
+                              meta=self._ell_meta)
 
     def run_tol(self, tol: float = 1e-6, max_iters: int = 1000,
                 x0: np.ndarray | torch.Tensor | None = None, *,
@@ -939,7 +990,8 @@ class PageRankEngine:
                 out = _run_tol(self._operands, self._dang, self.d, tol_f32,
                                x0, backend=self._mv_backend, n=self.n,
                                max_iters=max_iters, watchdog=watchdog,
-                               trace=trace, metrics=self.metrics)
+                               trace=trace, metrics=self.metrics,
+                               meta=self._ell_meta)
             return self._finish_solve(out, tol, max_iters, raise_on_fail)
 
     def ppr(self, seed_sets: Sequence[np.ndarray],

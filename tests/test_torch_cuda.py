@@ -1,8 +1,8 @@
 """PyTorch port on the card: the hand-written kernels (the fused step K1,
-the streaming matvec K2, the BSR SpMV K3 and the unpadded step K4) against
-their plain versions, the wrappers' checks on CUDA tensors, the engine's
-fused and ``bsr`` tiers (``run``, ``run_tol`` and batched PPR) with their
-launch counts, ``ops.pagerank_iteration``, one dynamic update per
+the streaming matvec K2, the BSR SpMV K3, the unpadded step K4 and the
+``ell`` tier's split-ELL step) against their plain versions, the
+wrappers' checks on CUDA tensors, the engine's fused, ``bsr`` and ``ell``
+tiers (``run``, ``run_tol`` and batched PPR) with their launch counts, ``ops.pagerank_iteration``, one dynamic update per
 patchable tier, the sharded mesh tiers on a mesh of the card against the
 same calls on a CPU mesh (K2 at their shard shapes against its plain
 version), the fabric simulator (hop mode, the full-width hop-mode matvec
@@ -15,7 +15,9 @@ and a NaN in one query's x is held to that query.  K1 and K4 run at the
 edges of their row-streaming core (one CTA's rows, fewer rows than SMs,
 rows that are not 16-byte aligned, H at an element offset), a NaN in x
 reaches every row, and 100 K1 steps replayed from a CUDA graph give the
-eager bits.  Every test here needs
+eager bits.  The split-ELL step runs at every storage type with and
+without its row counts, on a hub row over 16 chunks long, and repeats
+bit for bit.  Every test here needs
 a CUDA card and ``nvcc``; without a card each one skips with the reason
 (they carry the ``cuda`` marker).
 On the card:
@@ -35,6 +37,7 @@ from repro_torch.graph.generators import protein_network
 from repro_torch.graph.sparse import BSRMatrix
 from repro_torch.graph.transition import build_transition_dense
 from repro_torch.kernels import bsr_spmv as k3
+from repro_torch.kernels import ell_step as ell
 from repro_torch.kernels import ops
 from repro_torch.kernels import pagerank_step as k1
 from repro_torch.kernels import streaming_matvec as k2
@@ -45,6 +48,7 @@ from repro_torch.obs.registry import NullRegistry
 from repro_torch.pagerank import (DynamicPageRankEngine, LandmarkIndex,
                                   PageRankEngine)
 from repro_torch.pagerank.dense import pagerank_dense_fixed
+from repro_torch.pagerank.engine import _matvec
 
 pytestmark = pytest.mark.cuda
 
@@ -513,6 +517,143 @@ def test_engine_bsr_tier_on_card(cuda):
         if precision == "f32":
             r, d = eng.run_tol(tol=1e-6), dense.run_tol(tol=1e-6)
             assert r.info.converged and abs(r.info.iters - d.info.iters) <= 1
+
+
+# --------------------------------------------------------------------- #
+# the ell tier's split-ELL kernel                                       #
+# --------------------------------------------------------------------- #
+def _ell_graphs():
+    """Graphs for the split-ELL kernel: two hub rows past k0, empty rows
+    and dangling vertices; a protein network; a hub row whose overflow
+    spans four chunks; no overflow at all."""
+    rng = np.random.default_rng(30)
+    n = 300
+    s = np.concatenate([rng.integers(0, 250, 1500),
+                        rng.integers(0, 250, 250)])
+    d = np.concatenate([rng.integers(20, n, 1500), np.full(180, 7),
+                        np.full(70, 11)])
+    ps, pd = protein_network(400, seed=12)
+    hub = rng.choice(60_000, 12_000, replace=False)
+    zs = rng.integers(0, 70_000, 50_000)
+    zd = (rng.zipf(1.6, 50_000) - 1) % 70_000
+    return {"hubs": (s, d, n, None), "protein": (ps, pd, 400, 3),
+            "chunks": (np.concatenate([zs, hub]),
+                       np.concatenate([zd, np.full(12_000, 5)]), 70_000,
+                       None),
+            "no_overflow": (s, d, n, 400)}
+
+
+def _ell_engine(src, dst, n, device, **kw):
+    return PageRankEngine(src, dst, n, backend="ell", device=device,
+                          metrics=NullRegistry(), **kw)
+
+
+def _rank_like(n, seed, device):
+    x = torch.from_numpy(np.random.default_rng(seed).random(n)).float()
+    return (x / x.sum()).to(device)
+
+
+def _f64_steps(eng, n_iters):
+    """``n_iters`` steps from the uniform vector in float64 on the
+    engine's own operands: the exact sums the float32 steps round."""
+    ops = tuple(o.double() if o.is_floating_point() else o
+                for o in eng.operands)
+    dang, n = eng._dang.double(), eng.n
+    x = torch.full((n,), 1.0 / n, dtype=torch.float64, device=dang.device)
+    for _ in range(n_iters):
+        x = eng.d * (_matvec("ell", ops, x) + torch.sum(x * dang) / n) \
+            + (1.0 - eng.d) / n
+    return x
+
+
+@pytest.mark.parametrize("precision", list(STORE))
+def test_ell_step_kernel_matches_its_plain_version(cuda, precision):
+    """One step of the kernel against its plain version on the same card
+    tensors (rtol 1e-5, atol 1e-7), the new vector and its leak, on every
+    graph with the metadata's counts and as a carried layout without
+    them; a second call gives the same bits."""
+    for case, (src, dst, n, ell_k) in _ell_graphs().items():
+        eng = _ell_engine(src, dst, n, cuda, ell_k=ell_k,
+                          precision=precision)
+        x = _rank_like(n, n, cuda)
+        leak = torch.sum(x * eng._dang)
+        for meta in (eng._ell_meta, eng._ell_meta._replace(counts=None)):
+            args = (eng.operands, meta, eng._dang, x, leak)
+            new, lk = ell.ell_step(*args, d=eng.d)
+            want, want_lk = ell.ell_step_ref(*args, d=eng.d)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(new, want, rtol=1e-5, atol=1e-7,
+                                       msg=case)
+            torch.testing.assert_close(lk, want_lk, rtol=1e-5, atol=1e-7,
+                                       msg=case)
+            again = ell.ell_step(*args, d=eng.d)
+            assert torch.equal(again[0], new) and torch.equal(again[1], lk)
+            assert int(meta.ticket) == 0
+
+
+@pytest.mark.parametrize("precision", list(STORE))
+def test_ell_tier_runs_on_its_kernel(cuda, precision):
+    """``run(10)`` on the card launches one step's kernels ten times,
+    repeats bit for bit (no atomics), and matches the same steps in
+    float64 (rtol 1e-5, atol 1e-7); ``run_tol`` repeats bit for bit and,
+    in float32, stops within an iteration of the CPU engine's."""
+    src, dst, n, _ = _ell_graphs()["chunks"]
+    eng = _ell_engine(src, dst, n, cuda, precision=precision)
+    cpu = _ell_engine(src, dst, n, "cpu", precision=precision)
+    x = _rank_like(n, 1, cuda)
+    before = ell.launches[precision]
+    ell.ell_step(eng.operands, eng._ell_meta, eng._dang, x,
+                 torch.sum(x * eng._dang), d=eng.d)
+    per_step = ell.launches[precision] - before
+    assert per_step == 2
+    before = ell.launches[precision]
+    pr = eng.run(10)
+    torch.cuda.synchronize()
+    assert ell.launches[precision] - before == 10 * per_step
+    assert torch.equal(eng.run(10), pr)
+    torch.testing.assert_close(pr.double(), _f64_steps(eng, 10), rtol=1e-5,
+                               atol=1e-7)
+    r = eng.run_tol(tol=1e-6, max_iters=200)
+    assert torch.equal(eng.run_tol(tol=1e-6, max_iters=200)[0], r[0])
+    if precision == "f32":
+        c = cpu.run_tol(tol=1e-6, max_iters=200)
+        assert r.info.converged and abs(r.info.iters - c.info.iters) <= 1
+
+
+@pytest.mark.parametrize("precision", list(STORE))
+def test_ell_kernel_on_a_power_law_graph(cuda, precision):
+    """About 3 M entries with a hub row of some 190,000 overflow entries
+    (over 16 chunks): ``run(10)`` against the same ten steps in float64 on
+    the same operands (rtol 1e-5, atol 1e-7)."""
+    rng = np.random.default_rng(31)
+    n = 200_000
+    src = rng.integers(0, n - 1000, 3_000_000)
+    dst = (rng.zipf(1.4, 3_000_000) * 7919) % n
+    eng = _ell_engine(src, dst, n, cuda, precision=precision)
+    ptr = eng._ell_meta.ov_ptr.long()
+    assert int(ptr.diff().max()) > 16 * ell.CHUNK
+    torch.testing.assert_close(eng.run(10).double(), _f64_steps(eng, 10),
+                               rtol=1e-5, atol=1e-7)
+
+
+def test_ell_step_rejects_what_the_kernel_does_not_take(cuda):
+    src, dst, n, _ = _ell_graphs()["hubs"]
+    eng = _ell_engine(src, dst, n, cuda)
+    x = _rank_like(n, 2, cuda)
+    leak = torch.sum(x * eng._dang)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ell.ell_step(eng.operands, eng._ell_meta, eng._dang.cpu(), x, leak)
+    with pytest.raises(ValueError, match="float32"):
+        ell.ell_step(eng.operands, eng._ell_meta, eng._dang, x.double(),
+                     leak)
+    data, idx, *rest = eng.operands
+    with pytest.raises(ValueError, match="int32"):
+        ell.ell_step((data, idx.long(), *rest), eng._ell_meta, eng._dang, x,
+                     leak)
+    strided = data.t().contiguous().t()
+    with pytest.raises(ValueError, match="contiguous"):
+        ell.ell_step((strided, idx, *rest), eng._ell_meta, eng._dang, x,
+                     leak)
 
 
 @pytest.mark.parametrize("backend", ["dense", "ell", "fused_dense", "bsr"])
