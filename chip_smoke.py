@@ -844,7 +844,7 @@ def ell_step_phase(np, torch, dev, card, flush=None) -> dict:
     repeated bit for bit with 10 x 2 launches; one step flushed, warm and
     as an eager call beside its byte bound (each real entry's value and
     index, the metadata, x, dang, the new vector and the int8 scales, once
-    each), the eager step it replaced (``_matvec`` + ``sparse_step``)
+    each), the eager step it replaced (the tier's product + ``sparse_step``)
     flushed, and, issued eagerly after a flush, the plain version (its
     host syncs' gaps included) and in float32 ``torch.sparse_csr`` times
     x, the library yardstick the port never calls.  Returns the measurements and
@@ -857,7 +857,7 @@ def ell_step_phase(np, torch, dev, card, flush=None) -> dict:
     from repro_torch.kernels import ell_step as ell
     from repro_torch.obs.registry import NullRegistry
     from repro_torch.pagerank import PageRankEngine
-    from repro_torch.pagerank.engine import _matvec
+    from repro_torch.pagerank.engine import TIERS
     from repro_torch.pagerank.steps import sparse_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -902,8 +902,8 @@ def ell_step_phase(np, torch, dev, card, flush=None) -> dict:
             return ell.ell_step_ref(ops, meta, dang, x, leak, d=eng.d)
 
         def eager():
-            return sparse_step(lambda v: _matvec("ell", ops, v), x, dang,
-                               eng.d, n)
+            return sparse_step(lambda v: TIERS["ell"].product(ops, v), x,
+                               dang, eng.d, n)
 
         new, lk = kernel()
         want, want_lk = plain()

@@ -63,20 +63,23 @@ import dataclasses
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.fabric_matvec import ShardedTensor
 from repro_torch.graph import transition as tr
 from repro_torch.graph.delta import GraphDelta, edge_keys
-from repro_torch.kernels.streaming_matvec import streaming_matvec
-from repro_torch.obs.trace import SolveTrace, instrumented_tol_loop
-from repro_torch.pagerank import distributed as dist
-from repro_torch.pagerank.engine import PageRankEngine, _edge_set, _matvec
+from repro_torch.kernels.common import upcast_f32
+from repro_torch.obs.registry import NullRegistry
+from repro_torch.obs.trace import SolveTrace
+from repro_torch.pagerank.engine import (TIERS, PageRankEngine, Tier,
+                                         _edge_set)
 from repro_torch.pagerank.landmarks import _key_slice
-from repro_torch.pagerank.precision import quantize_int8, rowmax_scales
+from repro_torch.pagerank.precision import quantize_rows
 from repro_torch.pagerank.resilience import EngineSnapshot, make_solve_info
+from repro_torch.pagerank.steps import frontier_push
 
 __all__ = ["DynamicPageRankEngine", "UpdateInfo", "PATCHABLE_BACKENDS"]
+
+_QUIET = NullRegistry()
 
 # every tier patches in place (the sharded ones in the shards that own the
 # change); capacity overflow still escalates to rebuild, and int8 always
@@ -154,67 +157,96 @@ def _in_sorted(sorted_keys: np.ndarray, vals: np.ndarray) -> np.ndarray:
     return sorted_keys[idx] == vals
 
 
+class SellTier(Tier):
+    """The dynamic engine's patchable ``ell`` layout: a two-bucket sliced
+    ELLPACK.  Rows are permuted into a low tier (per-row budget the 90th
+    degree percentile + slack) and a hub tier, each with capacity slack,
+    so small deltas change no array shape; a product is two dense gathers
+    and no ``index_add_``.  Built on the host, in no phase span."""
+
+    def build(self, e, src, dst, edges):
+        n = e.n
+        e._dang = e._put(tr.dangling_mask(src, n).astype(np.float32))
+        csr = tr.build_transition_csr(src, dst, n, device="cpu")
+        counts = np.diff(csr.indptr.numpy())
+        # tier threshold at the 90th degree percentile; capacities sit
+        # ``slack`` (low) / >= 16 rounded to 32 (high) ABOVE the largest
+        # row they hold, so every row has patch headroom — a row outgrowing
+        # its tier is what escalates update() to the rebuild path
+        thresh = max(4, int(np.percentile(counts, 90)) if len(counts)
+                     else 0)
+        k_low = thresh + e._slack
+        maxdeg = int(counts.max()) if len(counts) else 0
+        k_high = -(-(max(maxdeg, k_low) + max(16, e._slack)) // 32) * 32
+        high = counts > thresh
+        low_rows = np.where(~high)[0]
+        high_rows = np.where(high)[0]
+        perm = np.concatenate([low_rows, high_rows])
+        e._sell_k = (k_low, k_high)
+        e._sell_pos = np.empty(n, np.int64)          # row -> index in tier
+        e._sell_pos[low_rows] = np.arange(len(low_rows))
+        e._sell_pos[high_rows] = np.arange(len(high_rows))
+        e._sell_high = high
+        inv = np.empty(n, np.int64)
+        inv[perm] = np.arange(n)
+        dl = np.zeros((len(low_rows), k_low), np.float32)
+        il = np.zeros((len(low_rows), k_low), np.int32)
+        dh = np.zeros((len(high_rows), k_high), np.float32)
+        ih = np.zeros((len(high_rows), k_high), np.int32)
+        rows, pos = csr.row_positions()
+        cols = csr.indices.numpy()
+        vals = csr.data.numpy()
+        in_low = ~high[rows]
+        r_l = e._sell_pos[rows[in_low]]
+        dl[r_l, pos[in_low]] = vals[in_low]
+        il[r_l, pos[in_low]] = cols[in_low]
+        r_h = e._sell_pos[rows[~in_low]]
+        dh[r_h, pos[~in_low]] = vals[~in_low]
+        ih[r_h, pos[~in_low]] = cols[~in_low]
+        inv = e._put(inv.astype(np.int32))
+        if e.precision == "int8":
+            # per-row scales per tier, appended to the operand tuple
+            (ql, sl), (qh, sh) = quantize_rows(dl), quantize_rows(dh)
+            e._operands = (e._put(ql), e._put(il), e._put(qh), e._put(ih),
+                           inv, e._put(sl), e._put(sh))
+        else:
+            dtype = e.storage_dtype
+            e._operands = (e._put(dl).to(dtype), e._put(il),
+                           e._put(dh).to(dtype), e._put(ih), inv)
+        e.layout = (f"sell(k_low={k_low}, k_high={k_high}, "
+                    f"n_high={len(high_rows)}, slack={e._slack})")
+
+    def product(self, ops, x, metrics=_QUIET):
+        dl, il, dh, ih, inv = ops[:5]
+        sl, sh = ops[5:7] if len(ops) == 7 else (None, None)
+        dl, dh = upcast_f32(dl), upcast_f32(dh)
+        vec = x.dim() == 1
+        with metrics.annotate("engine.step.rows"):
+            yl = torch.sum((dl if vec else dl[..., None]) * x[il], dim=1)
+            yh = torch.sum((dh if vec else dh[..., None]) * x[ih], dim=1)
+        return torch.cat([self.scale_rows(yl, sl), self.scale_rows(yh, sh)],
+                         dim=0)[inv]
+
+
 # --------------------------------------------------------------------------- #
 # Gauss–Southwell push: frontier-masked residual sweeps                       #
 # --------------------------------------------------------------------------- #
-def _push_loop(Ab, x0, tol, n, max_pushes, trace=False):
-    """Shared frontier loop.  ``Ab(x) = A·x + b`` is the damped PageRank
-    affine operator; the fixed point ``x = Ab(x)`` is solved for.  Every
-    sweep pushes the whole frontier mask ``|r| ≥ tol/n`` and refreshes the
-    residual from scratch.  The real initial residual seeds the loop (on
-    the device), so an already-converged frontier takes no sweep.
-    ``tol`` is a float32 0-dim tensor.  Returns ``(x, iters, residual,
-    grow, ring)``."""
-    thresh = tol / n
-
-    def step(state):
-        x, r = state
-        x = x + r * (torch.abs(r) >= thresh).to(x.dtype)
-        r = Ab(x) - x
-        return (x, r), torch.sum(torch.abs(r))
-
-    r0 = Ab(x0) - x0
-    (x, _), iters, res, grow, ring = instrumented_tol_loop(
-        step, (x0, r0), tol=tol, max_iters=max_pushes, watchdog=True,
-        trace=trace, res0=torch.sum(torch.abs(r0)))
-    return x, iters, res, grow, ring
+def _push_tol(e, tol, x0, *, max_pushes: int, trace: bool = False):
+    """The push on one device: :func:`frontier_push` on the tier's damped
+    affine operator ``Ab(x) = A·x + b``, in the tier's layout, to the L1
+    residual ``tol`` (a float32 0-dim tensor).  Returns ``(x, iters,
+    residual, grow, ring)``."""
+    Ab, x0, ranks = e._tier.push_operator(e, x0)
+    x, _, *out = frontier_push(Ab, x0, tol, e.n, max_pushes, trace=trace,
+                               residual=lambda r: torch.sum(torch.abs(r)))
+    return ranks(x), *out
 
 
-def _push_tol(operands, dang, d, tol, x0, *, backend: str, n: int,
-              max_pushes: int, trace: bool = False):
-    if (backend == "dense" and len(operands) == 1
-            and operands[0].dtype == torch.float32):
-        # the f32 dense operand is dangling-FIXED: A·x is just d·H·x.  The
-        # reduced dense tiers store H unfixed and take the explicit leak
-        def Ab(x):
-            return d * (operands[0] @ x) + (1.0 - d) / n
-    else:
-        def Ab(x):
-            return d * (_matvec(backend, operands, x)
-                        + torch.sum(x * dang) / n) + (1.0 - d) / n
-
-    return _push_loop(Ab, x0, tol, n, max_pushes, trace=trace)
-
-
-def _push_fused(Hp, dangp, d, tol, x0, *, n: int, max_pushes: int,
-                trace: bool = False):
-    """The push on the fused tier's pre-padded (1, Mp) layout, one launch
-    of the streaming kernel per sweep (plus one for the start residual).
-    Pad entries of H, dang and x0 are zero and ``real`` masks the affine
-    terms off the tail, so the residual stays zero there and the frontier
-    never touches it."""
-    Mp = Hp.shape[1]
-    real = (torch.arange(Mp, device=Hp.device) < n).to(torch.float32)[None]
-    xp0 = F.pad(x0, (0, Mp - n))[None, :]
-
-    def Ab(xp):
-        y = streaming_matvec(Hp, xp)
-        leak = torch.sum(xp * dangp)
-        return d * (y + leak / n * real) + (1.0 - d) / n * real
-
-    xp, iters, res, grow, ring = _push_loop(Ab, xp0, tol, n, max_pushes,
-                                            trace=trace)
-    return xp[0, :n], iters, res, grow, ring
+def _push_fused(e, tol, x0, *, max_pushes: int, trace: bool = False):
+    """The push of the fused tier, one launch of the streaming kernel per
+    sweep (plus one for the start residual); a name of its own, so that a
+    fault can be planted in that tier's push alone."""
+    return _push_tol(e, tol, x0, max_pushes=max_pushes, trace=trace)
 
 
 # --------------------------------------------------------------------------- #
@@ -242,6 +274,7 @@ class DynamicPageRankEngine(PageRankEngine):
     ``update``'s default ``tol=1e-6`` keeps incremental and from-scratch
     ranks within 1e-5 (L1) of each other.
     """
+    _TIERS = {**TIERS, "ell": SellTier()}
 
     def __init__(self, src: np.ndarray, dst: np.ndarray, n: int, *,
                  slack: int = 8, push_max_changed: int = 64,
@@ -263,76 +296,11 @@ class DynamicPageRankEngine(PageRankEngine):
             # patch headroom: the engine takes ``_ell_k`` as a minimum row
             # capacity, so maxdeg + slack keeps every shape fixed across
             # small deltas; a row outgrowing it escalates to a rebuild
-            indeg = np.bincount(np.asarray(dst, np.int64), minlength=self.n)
-            maxdeg = int(indeg.max()) if len(indeg) else 0
+            maxdeg = int(self._indeg.max()) if len(self._indeg) else 0
             self._ell_k = maxdeg + max(4, self._slack)
-            super()._prepare_layout(src, dst, edges)
-            return
+        super()._prepare_layout(src, dst, edges)
         if self.backend == "bsr":
-            super()._prepare_layout(src, dst, edges)
             self._bsr_index(src, dst)
-            return
-        if self.backend != "ell":
-            super()._prepare_layout(src, dst, edges)
-            return
-        n = self.n
-        self._dang = self._put(tr.dangling_mask(src, n).astype(np.float32))
-        self._scales = None
-        self._mv_backend = "sell"     # engine._matvec's tag for this layout
-        csr = tr.build_transition_csr(src, dst, n, device="cpu")
-        counts = np.diff(csr.indptr.numpy())
-        # tier threshold at the 90th degree percentile; capacities sit
-        # ``slack`` (low) / >= 16 rounded to 32 (high) ABOVE the largest
-        # row they hold, so every row has patch headroom — a row outgrowing
-        # its tier is what escalates update() to the rebuild path
-        thresh = max(4, int(np.percentile(counts, 90)) if len(counts)
-                     else 0)
-        k_low = thresh + self._slack
-        maxdeg = int(counts.max()) if len(counts) else 0
-        k_high = -(-(max(maxdeg, k_low) + max(16, self._slack)) // 32) * 32
-        high = counts > thresh
-        low_rows = np.where(~high)[0]
-        high_rows = np.where(high)[0]
-        perm = np.concatenate([low_rows, high_rows])
-        self._sell_k = (k_low, k_high)
-        self._sell_pos = np.empty(n, np.int64)       # row -> index in tier
-        self._sell_pos[low_rows] = np.arange(len(low_rows))
-        self._sell_pos[high_rows] = np.arange(len(high_rows))
-        self._sell_high = high
-        inv = np.empty(n, np.int64)
-        inv[perm] = np.arange(n)
-        dl = np.zeros((len(low_rows), k_low), np.float32)
-        il = np.zeros((len(low_rows), k_low), np.int32)
-        dh = np.zeros((len(high_rows), k_high), np.float32)
-        ih = np.zeros((len(high_rows), k_high), np.int32)
-        rows, pos = csr.row_positions()
-        cols = csr.indices.numpy()
-        vals = csr.data.numpy()
-        in_low = ~high[rows]
-        r_l = self._sell_pos[rows[in_low]]
-        dl[r_l, pos[in_low]] = vals[in_low]
-        il[r_l, pos[in_low]] = cols[in_low]
-        r_h = self._sell_pos[rows[~in_low]]
-        dh[r_h, pos[~in_low]] = vals[~in_low]
-        ih[r_h, pos[~in_low]] = cols[~in_low]
-        inv = self._put(inv.astype(np.int32))
-        if self.precision == "int8":
-            # per-row scales per tier, appended to the operand tuple
-            sl = rowmax_scales(np.abs(dl).max(axis=1, initial=0.0))
-            sh = rowmax_scales(np.abs(dh).max(axis=1, initial=0.0))
-            self._operands = (
-                self._put(quantize_int8(dl, sl[:, None])), self._put(il),
-                self._put(quantize_int8(dh, sh[:, None])), self._put(ih),
-                inv, self._put(sl), self._put(sh))
-        else:
-            dtype = self.storage_dtype
-            self._operands = (self._put(dl).to(dtype), self._put(il),
-                              self._put(dh).to(dtype), self._put(ih), inv)
-        self.layout = (f"sell(k_low={k_low}, k_high={k_high}, "
-                       f"n_high={len(high_rows)}, slack={self._slack})")
-        if self.precision != "f32":
-            self.layout = f"{self.layout}[{self.precision}]"
-        self._record_layout_bytes()
 
     def _bsr_index(self, src: np.ndarray, dst: np.ndarray) -> None:
         """Host map of the prepared BSR block structure: sorted int64
@@ -743,24 +711,7 @@ class DynamicPageRankEngine(PageRankEngine):
     def _push(self, x0: torch.Tensor, tol: float, max_pushes: int,
               trace: bool = True):
         if self.mesh is not None:
-            kw = dict(tol=float(np.float32(tol)), max_pushes=max_pushes,
-                      d=self.d,
-                      dangling=self._dang, n_true=self.n, trace=trace,
-                      scales=self._scales)
-            x0 = self._pad_x0(x0)
-            if self.backend == "dense_sharded":
-                out = dist.push_distributed_tol(
-                    self._operands[0], self.mesh, x0, row_axis=self._axes[0],
-                    col_axis=self._axes[1], **kw)
-            else:
-                out = dist.push_distributed_sparse_tol(
-                    *self._operands, self.mesh, x0, axes=self._axes, **kw)
-            return (out[0].full()[:self.n], *out[1:])
+            return self._tier.push(self, x0, tol, max_pushes, trace)
         tol_t = torch.tensor(tol, dtype=torch.float32).to(self.device)
-        if self.backend == "fused_dense":
-            Hp, dangp = self._operands
-            return _push_fused(Hp, dangp, self.d, tol_t, x0, n=self.n,
-                               max_pushes=max_pushes, trace=trace)
-        return _push_tol(self._operands, self._dang, self.d, tol_t, x0,
-                         backend=self._mv_backend, n=self.n,
-                         max_pushes=max_pushes, trace=trace)
+        push = _push_fused if self._tier.fused else _push_tol
+        return push(self, tol_t, x0, max_pushes=max_pushes, trace=trace)

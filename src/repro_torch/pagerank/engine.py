@@ -1,38 +1,24 @@
 """PageRank engine: prepare a layout once, then run the power iteration on
 the device.
 
-The PyTorch counterpart of ``repro.pagerank.engine.PageRankEngine`` for the
-single-device tiers:
+The PyTorch counterpart of ``repro.pagerank.engine.PageRankEngine``.  Each
+backend is one :class:`Tier`, which owns its layout's build, its eager
+product, its global step and its push and personalized operators:
 
-* ``"dense"``       — dangling-fixed dense H (f32), ``H @ x`` sweeps.
-* ``"ell"``         — split ELLPACK: a tight per-row budget (``ell_k``,
-  default the 90th degree percentile) plus a COO overflow tail for hub
-  rows.  On the card ``run`` and ``run_tol`` take each step in two
-  launches of the hand-written split-ELL kernel
-  (:func:`repro_torch.kernels.ell_step.ell_step`); the CPU and the batched
-  products keep the eager gathers.
-* ``"bsr"``         — block-sparse rows (``bsr_block_size`` blocks, 128 by
-  default), H stored dangling-unfixed with the explicit leak; every
-  product is one launch of the hand-written BSR kernel
-  (:func:`repro_torch.kernels.bsr_spmv.bsr_spmv`, through
-  :func:`repro_torch.kernels.ops.spmv`), for one vector or for all the
-  queries of a PPR iteration or push sweep.
-* ``"fused_dense"`` — the pre-padded dense layout through the hand-written
-  fused kernel (:func:`repro_torch.kernels.pagerank_step
-  .pagerank_step_fused`), which emits the dangling leak of the new rank
-  vector from its own epilogue; its batched personalized PageRank runs on
-  the hand-written streaming kernel
-  (:func:`repro_torch.kernels.streaming_matvec.streaming_matvec`).  It
-  stands for the JAX ``pallas_dense`` tier.
-* ``"dense_sharded"`` — dangling-unfixed dense H blocked ``P(row, col)``
-  over a 2-D :class:`~repro_torch.launch.mesh.Mesh`, iterated with the
-  paper's fabric schedule (:mod:`repro_torch.pagerank.distributed`): one
-  K2 launch per shard per iteration, one horizontal-bus psum and one
-  re-injection; explicit scalar leak.
-* ``"ell_sharded"`` — full-K ELL rows sharded over the flattened mesh,
-  rank vector replicated, one all_gather per iteration.
-* ``"auto"``        — :func:`select_backend` by density and device
-  topology (more than one device picks a sharded tier).
+* ``"dense"`` — dense H, ``H @ x`` sweeps (:class:`DenseTier`).
+* ``"ell"`` — split ELLPACK, on the card the hand-written split-ELL kernel
+  (:class:`EllTier`).
+* ``"bsr"`` — block-sparse rows on the hand-written BSR kernel
+  (:class:`BsrTier`).
+* ``"fused_dense"`` — the pre-padded dense layout on the hand-written fused
+  and streaming kernels (:class:`FusedDenseTier`); it stands for the JAX
+  ``pallas_dense`` tier.
+* ``"dense_sharded"`` / ``"ell_sharded"`` — dense blocks on a 2-D
+  :class:`~repro_torch.launch.mesh.Mesh` through the paper's fabric
+  schedule, or full-K ELL rows over the flattened mesh
+  (:class:`DenseShardedTier`, :class:`EllShardedTier`).
+* ``"auto"`` — :func:`select_backend` by density and device topology (more
+  than one device picks a sharded tier).
 
 Every tier supports the four storage precisions (f32, bf16, f16, int8 with
 per-row scales); the solve itself is float32.  ``run`` issues its
@@ -51,7 +37,7 @@ from __future__ import annotations
 import contextlib
 import math
 import warnings
-from typing import NamedTuple, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -71,15 +57,15 @@ from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.pagerank import distributed as dist
 from repro_torch.obs.registry import NullRegistry, default_registry
 from repro_torch.obs.trace import SolveTrace, instrumented_tol_loop
-from repro_torch.pagerank.dense import pagerank_dense, pagerank_dense_fixed
 from repro_torch.pagerank.precision import (PRECISIONS, STORAGE_DTYPES,
                                             layout_nbytes, quantize_int8,
-                                            resolve_precision, rowmax_scales,
+                                            quantize_rows, resolve_precision,
+                                            rowmax_scales,
                                             solve_dtype)
 from repro_torch.pagerank.resilience import (ConvergenceError, SolveResult,
                                              make_solve_info)
-from repro_torch.pagerank.steps import (ppr_step_batched, seed_matrix,
-                                        sparse_step)
+from repro_torch.pagerank.steps import (dense_step, ppr_step_batched,
+                                        seed_matrix, sparse_step)
 
 __all__ = ["PageRankEngine", "select_backend", "default_mesh", "BACKENDS",
            "SHARDED_BACKENDS", "PRECISIONS"]
@@ -270,36 +256,251 @@ def _split_ell(csr: CSRMatrix, k0: int | None = None):
             int(ov.numel()))
 
 
-def _row_scale(y: torch.Tensor, scales: torch.Tensor | None) -> torch.Tensor:
-    """Fold an int8 layout's per-row f32 scales into the row sums of a
-    vector (n,) or a query block (n, Q)."""
-    if scales is None:
-        return y
-    return y * (scales if y.dim() == 1 else scales[:, None])
-
-
 # the registry of the products that run outside an engine's step loop
 _QUIET = NullRegistry()
 
 
-def _matvec(backend: str, operands, x: torch.Tensor,
-            metrics=_QUIET) -> torch.Tensor:
-    """y = H @ x on the prepared layout (tagged by ``backend``, the
-    engine's ``_mv_backend``), for a vector x (n,) or a query block x
-    (n, Q).  Value arrays may be stored in a reduced dtype; they are
-    upcast at the multiply and accumulated in f32.  int8 layouts append
-    their per-row f32 scales to the operand tuple (``bsr``: the
-    container's ``row_scales``).  ``metrics.annotate`` marks the product
-    over the layout's rows (``engine.step.rows``) and ``ell``'s overflow
-    tail (``engine.step.overflow``)."""
-    if backend == "dense":
-        scales = operands[1] if len(operands) == 2 else None
+def _uniform(n: int, device: torch.device) -> torch.Tensor:
+    return torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
+
+
+# --------------------------------------------------------------------------- #
+# the tiers: one stateless object per layout kind                             #
+# --------------------------------------------------------------------------- #
+class Tier:
+    """One layout kind of the engine: its build, its eager product, its
+    global step, the push's affine operator and the batched personalized
+    operator, each in the tier's own layout.
+
+    A tier holds no state: there is one instance per kind, and every
+    method reads the engine ``e``'s ``_operands``, ``_dang``, ``_scales``
+    and ``_ell_meta`` when it is called, so a patch or a rollback of those
+    attributes needs no word to the tier.  This base is an eager tier of
+    one device: its step is ``sparse_step`` over :meth:`product`, its state
+    the rank vector, its batched layout the (N, Q) block.  A kind supplies
+    ``pack(e, src, dst, csr, dang)``, the layout before the upload, and
+    ``upload(e, host, dang)``, which places it and the dangling mask."""
+    sharded = False         # runs on the engine's mesh (distributed.py)
+    fused = False           # steps through the fused kernel (K1)
+    device_csr = False      # builds its transition CSR in prepare.csr
+    node_axis = 0           # the node axis of the batched layout
+
+    # ------------------------------ build ------------------------------ #
+    def build(self, e, src: np.ndarray, dst: np.ndarray,
+              edges: DeviceEdges | None) -> None:
+        """The layout from a deduplicated COO edge list, in the phases
+        ``prepare.csr`` (the tiers that build their transition CSR on the
+        engine's device from ``edges``, the edge list uploaded where none
+        is given), ``prepare.pack`` and ``prepare.upload``."""
+        csr = None
+        if self.device_csr:
+            with e._phase("prepare.csr"):
+                if edges is None:
+                    edges = _device_edges(_device_ids(src, e.device),
+                                          _device_ids(dst, e.device), e.n)
+                csr = _transition_csr(edges, e.n)
+        with e._phase("prepare.pack"):
+            dang = self.dangling(e, src, edges)
+            host = self.pack(e, src, dst, csr, dang)
+        del edges, csr
+        with e._phase("prepare.upload"):
+            self.upload(e, host, dang)
+
+    def dangling(self, e, src: np.ndarray, edges):
+        """The dangling mask (float32, 1 where a vertex has no out-edge)."""
+        return tr.dangling_mask(src, e.n).astype(np.float32)
+
+    def adopt(self, e, layout: dict) -> None:
+        """Take operands prepared elsewhere (``from_layout``)."""
+        e._operands = tuple(o.to(e.device) for o in layout["operands"])
+        e._dang = layout["dang"].to(e.device)
+        if layout.get("scales") is not None:
+            e._scales = layout["scales"].to(e.device)
+
+    # ----------------------------- products ---------------------------- #
+    @staticmethod
+    def scale_rows(y: torch.Tensor, scales: torch.Tensor | None
+                   ) -> torch.Tensor:
+        """Fold an int8 layout's per-row f32 scales into the row sums of a
+        vector (n,) or a query block (n, Q)."""
+        if scales is None:
+            return y
+        return y * (scales if y.dim() == 1 else scales[:, None])
+
+    def product(self, ops: tuple, x: torch.Tensor,
+                metrics=_QUIET) -> torch.Tensor:
+        """y = H @ x on the operands ``ops`` for a vector x (n,) or a query
+        block x (n, Q).  Reduced-precision values are upcast at the
+        multiply and accumulated in f32; int8 layouts carry their per-row
+        f32 scales in ``ops``.  ``metrics.annotate`` marks the product
+        over the layout's rows (``engine.step.rows``)."""
+        raise NotImplementedError(f"{type(self).__name__} has no eager "
+                                  "product")
+
+    # ---------------------------- global step --------------------------- #
+    def start(self, e, x0: torch.Tensor | None):
+        """The step's state at ``x0`` (the uniform vector if ``None``)."""
+        return _uniform(e.n, e._dang.device) if x0 is None else x0
+
+    def eager_step(self, e, metrics):
+        """One power iteration of a rank vector, the profiler range
+        ``engine.step.combine`` around its product's ranges."""
+        ops, dang, d, n = e._operands, e._dang, e.d, e.n
+
+        def step(x):
+            with metrics.annotate("engine.step.combine"):
+                return sparse_step(lambda v: self.product(ops, v, metrics),
+                                   x, dang, d, n)
+        return step
+
+    def step(self, e, metrics):
+        """The global step on the tier's state."""
+        return self.eager_step(e, metrics)
+
+    def ranks(self, e, state) -> torch.Tensor:
+        """The rank vector (n,) of a state."""
+        return state
+
+    def run(self, e, n_iters: int) -> torch.Tensor:
+        step, state = self.step(e, e.metrics), self.start(e, None)
+        for _ in range(n_iters):
+            state = step(state)
+        return self.ranks(e, state)
+
+    def run_tol(self, e, tol, x0, max_iters: int, watchdog: bool,
+                trace: bool):
+        step = self.step(e, e.metrics)
+
+        def body(state):
+            new = step(state)
+            return new, torch.sum(torch.abs(self.ranks(e, new)
+                                            - self.ranks(e, state)))
+
+        out = instrumented_tol_loop(body, self.start(e, x0), tol=tol,
+                                    max_iters=max_iters, watchdog=watchdog,
+                                    trace=trace)
+        return (self.ranks(e, out[0]), *out[1:])
+
+    # ------------------------------- push ------------------------------- #
+    def push_operator(self, e, x0: torch.Tensor):
+        """The push's damped affine operator ``Ab(x) = A·x + b`` of one
+        rank vector in the tier's layout, ``x0`` placed in that layout, and
+        the rank vector of a layout vector: ``(Ab, x0, ranks)``."""
+        return self.eager_step(e, _QUIET), x0, lambda x: x
+
+    # ---------------------- personalized PageRank ---------------------- #
+    def enter(self, e, A: np.ndarray) -> torch.Tensor:
+        """A host (n, Q) block in the batched layout on the device."""
+        return e._put(A)
+
+    def leave(self, e, X: torch.Tensor) -> torch.Tensor:
+        """The (n, Q) block of a batched-layout one."""
+        return X
+
+    def batched_product(self, e):
+        """``X -> H @ X`` on a query block of the batched layout."""
+        ops = e._operands
+        return lambda X: self.product(ops, X)
+
+    def ppr_operator(self, e, V: torch.Tensor):
+        """The batched personalized operator ``Ab(X) = d·(H·X + V·leak) +
+        (1−d)·V`` in the batched layout (``V`` in it too)."""
+        mv, dang, d = self.batched_product(e), e._dang, e.d
+        return lambda X: ppr_step_batched(mv, X, V, dang, d)
+
+    def ppr(self, e, V: np.ndarray, n_iters: int) -> torch.Tensor:
+        """``n_iters`` personalized steps from the host (n, Q) teleport
+        block ``V``; the (n, Q) ranks."""
+        PR = V = self.enter(e, V)
+        Ab = self.ppr_operator(e, V)
+        for _ in range(n_iters):
+            PR = Ab(PR)
+        return self.leave(e, PR).contiguous()
+
+
+class DenseTier(Tier):
+    """H as a dense (n, n) matrix.  f32 stores it dangling-FIXED (the
+    uniform 1/n leak folded into the dangling columns) and steps with
+    ``dense_step``; the reduced precisions store it unfixed and pay the
+    explicit scalar leak through ``sparse_step``."""
+
+    def pack(self, e, src, dst, csr, dang):
+        n = e.n
+        if e.precision == "f32":
+            return (tr.transition_dense_np(src, dst, n),)
+        H = tr.transition_dense_np(src, dst, n, fix_dangling=False)
+        if e.precision != "int8":
+            return (H,)
+        return quantize_rows(H)
+
+    def upload(self, e, host, dang):
+        e._dang = e._put(dang)
+        e._operands = (tuple(e._put(a) for a in host)
+                       if e.precision == "int8"
+                       else (e._put(host[0]).to(e.storage_dtype),))
+
+    def product(self, ops, x, metrics=_QUIET):
+        scales = ops[1] if len(ops) == 2 else None
         with metrics.annotate("engine.step.rows"):
-            y = upcast_f32(operands[0]) @ x
-        return _row_scale(y, scales)
-    if backend == "ell":
-        data, idx, ov_r, ov_c, ov_v = operands[:5]
-        scales = operands[5] if len(operands) == 6 else None
+            y = upcast_f32(ops[0]) @ x
+        return self.scale_rows(y, scales)
+
+    def eager_step(self, e, metrics):
+        if e.precision != "f32":
+            return super().eager_step(e, metrics)
+        H, d = e._operands[0], e.d
+        return lambda x: dense_step(H, x, d)
+
+    def batched_product(self, e):
+        # PPR teleports the leak to V: the dangling fix of the f32 operand
+        # is undone by zeroing those columns, once per call (a no-op on the
+        # unfixed reduced layouts)
+        ops = e._operands
+        scales = ops[1] if len(ops) == 2 else None
+        H = upcast_f32(ops[0]) * (1.0 - e._dang)[None, :]
+        return lambda X: self.scale_rows(H @ X, scales)
+
+
+class EllTier(Tier):
+    """Split ELLPACK: a per-row budget ``k0`` (``ell_k``, default the 90th
+    degree percentile) plus a COO overflow tail for the hub rows, built on
+    the engine's device.  On the card ``run`` and ``run_tol`` take each
+    step in two launches of the split-ELL kernel
+    (:func:`repro_torch.kernels.ell_step.ell_step`, its metadata the
+    engine's ``_ell_meta``) on the carry ``(x, sum(x * dang))``; the CPU
+    and the batched products take the eager gathers."""
+    device_csr = True
+
+    def dangling(self, e, src, edges):
+        return (edges.outdeg == 0).float()
+
+    def pack(self, e, src, dst, csr, dang):
+        ops, k0, ov_nnz = _split_ell(csr, k0=e._ell_k)
+        e.layout = f"ell(k0={k0})+overflow(nnz={ov_nnz})"
+        e._ell_meta = ell_meta(ops[2], e.n,
+                               torch.clamp(csr.indptr.diff(), max=k0))
+        data, idx, ov_r, ov_c, ov_v = ops
+        if e.precision != "int8":
+            return (data.to(e.storage_dtype), idx, ov_r, ov_c,
+                    ov_v.to(e.storage_dtype))
+        # int8 scales over the FULL row: the ELL block's entries and the
+        # overflow tail share the row's abs-max; a sixth operand
+        absmax = data.abs().amax(dim=1).scatter_reduce(
+            0, ov_r.long(), ov_v.abs(), "amax")
+        scales = rowmax_scales(absmax)
+        return (quantize_int8(data, scales[:, None]), idx, ov_r, ov_c,
+                quantize_int8(ov_v, scales[ov_r]), scales)
+
+    def upload(self, e, host, dang):            # built on the device
+        e._operands, e._dang = host, dang
+
+    def adopt(self, e, layout):
+        super().adopt(e, layout)
+        e._ell_meta = ell_meta(e._operands[2], e.n)   # all k0 slots read
+
+    def product(self, ops, x, metrics=_QUIET):
+        data, idx, ov_r, ov_c, ov_v = ops[:5]
+        scales = ops[5] if len(ops) == 6 else None
         data, ov_v = upcast_f32(data), upcast_f32(ov_v)
         vec = x.dim() == 1
         with metrics.annotate("engine.step.rows"):
@@ -307,187 +508,371 @@ def _matvec(backend: str, operands, x: torch.Tensor,
         with metrics.annotate("engine.step.overflow"):
             tail = torch.zeros_like(y).index_add_(
                 0, ov_r, (ov_v if vec else ov_v[:, None]) * x[ov_c])
-        return _row_scale(y + tail, scales)
-    if backend == "sell":
-        # two-bucket sliced ELLPACK (the dynamic engine's patchable ELL
-        # tier, repro_torch.pagerank.dynamic): rows permuted into a low
-        # tier and a hub tier, two dense gathers, no index_add_
-        dl, il, dh, ih, inv = operands[:5]
-        sl, sh = operands[5:7] if len(operands) == 7 else (None, None)
-        dl, dh = upcast_f32(dl), upcast_f32(dh)
+        return self.scale_rows(y + tail, scales)
+
+    def start(self, e, x0):
+        x = super().start(e, x0)
+        return (x, torch.sum(x * e._dang)) if self._kernel(e) else x
+
+    def step(self, e, metrics):
+        if not self._kernel(e):
+            return super().step(e, metrics)
+        ops, meta, dang, d = e._operands, e._ell_meta, e._dang, e.d
+
+        def ranges(part):
+            return metrics.annotate(f"engine.step.{part}")
+
+        def step(carry):
+            with metrics.annotate("engine.step.combine"):
+                return ell_step(ops, meta, dang, *carry, d=d,
+                                annotate=ranges)
+        return step
+
+    def ranks(self, e, state):
+        return state[0] if isinstance(state, tuple) else state
+
+    @staticmethod
+    def _kernel(e) -> bool:
+        """Whether the engine's solves step through the split-ELL kernel:
+        on the card."""
+        return e._dang.device.type == "cuda"
+
+
+class BsrTier(Tier):
+    """Block-sparse rows (``bsr_block_size`` blocks, 128 by default), H
+    stored dangling-unfixed: every product is one launch of the BSR kernel
+    (:func:`repro_torch.kernels.bsr_spmv.bsr_spmv`, through
+    :func:`repro_torch.kernels.ops.spmv`), for one vector or for all the
+    queries of a PPR iteration or push sweep."""
+
+    def pack(self, e, src, dst, csr, dang):
+        """``(blocks, block_cols, shape, int8 row scales or None)`` on the
+        host; int8 scales per row, the abs-max over the row's whole block
+        budget (slot and in-block column)."""
+        bsr = tr.build_transition_bsr(src, dst, e.n, bs=e._bsr_block_size,
+                                      device="cpu")
+        blocks = bsr.blocks.numpy()
+        cols = bsr.block_cols.numpy()
+        if e.precision != "int8":
+            return blocks, cols, bsr.shape, None
+        nb_r, _, bs, _ = blocks.shape
+        # axis 2 is the row within a block: reduce over (slot, col)
+        absmax = np.abs(blocks).max(axis=(1, 3))            # (nb_r, bs)
+        scales = rowmax_scales(absmax.reshape(-1))          # (nb_r * bs,)
+        return (quantize_int8(blocks, scales.reshape(nb_r, 1, bs, 1)), cols,
+                bsr.shape, scales)
+
+    def upload(self, e, host, dang):
+        e._dang = e._put(dang)
+        blocks, cols, shape, scales = host
+        if scales is None:
+            bsr = BSRMatrix(e._put(blocks).to(e.storage_dtype),
+                            e._put(cols), shape=shape)
+        else:
+            bsr = BSRMatrix(e._put(blocks), e._put(cols), shape=shape,
+                            row_scales=e._put(scales))
+        e._operands = (bsr,)
+
+    def product(self, ops, x, metrics=_QUIET):
+        # the container's int8 row scales are applied inside ops.spmv
         with metrics.annotate("engine.step.rows"):
-            if x.dim() == 1:
-                yl = torch.sum(dl * x[il], dim=1)
-                yh = torch.sum(dh * x[ih], dim=1)
-            else:
-                yl = torch.sum(dl[..., None] * x[il], dim=1)
-                yh = torch.sum(dh[..., None] * x[ih], dim=1)
-        return torch.cat([_row_scale(yl, sl), _row_scale(yh, sh)],
-                         dim=0)[inv]
-    if backend == "bsr":
-        # one launch of the BSR kernel for a vector or a query block; the
-        # container's int8 row scales are applied after it
-        with metrics.annotate("engine.step.rows"):
-            return kops.spmv(operands[0], x)
-    raise ValueError(f"unknown backend {backend!r}")
+            return kops.spmv(ops[0], x)
 
 
-def _uniform(n: int, device: torch.device) -> torch.Tensor:
-    return torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
+class FusedDenseTier(Tier):
+    """The pre-padded dense layout ``(Hp, dangp)``, H dangling-unfixed.
+    Its step is the fused kernel (K1, :func:`repro_torch.kernels
+    .pagerank_step.pagerank_step_fused`), which emits the leak of the new
+    vector from its epilogue, on the state ``(xp, t)``: the (1, Mp) padded
+    vector and its teleport-plus-leak scalar.  Its push and its batched
+    personalized operator run on the streaming kernel (K2,
+    :func:`repro_torch.kernels.streaming_matvec.streaming_matvec`), the
+    latter in the transposed (Q, Mp) layout; an int8 layout's (1, Np) row
+    scales multiply the kernels' outputs."""
+    fused = True
+    node_axis = 1
 
+    def pack(self, e, src, dst, csr, dang):
+        H = torch.from_numpy(
+            tr.transition_dense_np(src, dst, e.n, fix_dangling=False))
+        Hp, dangp = pad_pagerank_operands(H, torch.from_numpy(dang))
+        if e.precision != "int8":
+            return Hp.to(e.storage_dtype), dangp, None
+        q, scales = quantize_rows(Hp.numpy())
+        return torch.from_numpy(q), dangp, scales
 
-def _on_ell_kernel(backend: str, x: torch.Tensor) -> bool:
-    """Whether a solve of ``x`` steps through the split-ELL kernel: one
-    vector on the card, on the ``ell`` layout."""
-    return backend == "ell" and x.device.type == "cuda" and x.dim() == 1
-
-
-def _ell_kernel_step(operands, meta, dang, d, metrics):
-    """One step of :func:`ell_step` on the carry ``(x, sum(x * dang))``,
-    in the range ``engine.step.combine`` around its passes' ranges
-    ``engine.step.overflow`` and ``engine.step.rows``."""
-    def ranges(part):
-        return metrics.annotate(f"engine.step.{part}")
-
-    def step(carry):
-        with metrics.annotate("engine.step.combine"):
-            return ell_step(operands, meta, dang, *carry, d=d,
-                            annotate=ranges)
-    return step
-
-
-def _run_fixed(operands, dang, d, *, backend: str, n: int, n_iters: int,
-               metrics, meta=None):
-    """``n_iters`` steps from the uniform vector; each step is the
-    profiler range ``engine.step.combine``, around its product's
-    ranges.  On the card the ``ell`` layout steps through the split-ELL
-    kernel (``meta`` its :func:`ell_meta`), which keeps the leak on the
-    device."""
-    pr = _uniform(n, dang.device)
-    if _on_ell_kernel(backend, pr):
-        step = _ell_kernel_step(operands, meta, dang, d, metrics)
-        carry = (pr, torch.sum(pr * dang))
-        for _ in range(n_iters):
-            carry = step(carry)
-        return carry[0]
-    for _ in range(n_iters):
-        with metrics.annotate("engine.step.combine"):
-            pr = sparse_step(lambda v: _matvec(backend, operands, v, metrics),
-                             pr, dang, d, n)
-    return pr
-
-
-def _run_tol(operands, dang, d, tol, x0, *, backend: str, n: int,
-             max_iters: int, watchdog: bool, trace: bool, metrics,
-             meta=None):
-    pr0 = _uniform(n, dang.device) if x0 is None else x0
-    if _on_ell_kernel(backend, pr0):
-        kernel_step = _ell_kernel_step(operands, meta, dang, d, metrics)
-
-        def ell_step_res(carry):
-            new = kernel_step(carry)
-            return new, torch.sum(torch.abs(new[0] - carry[0]))
-
-        out = instrumented_tol_loop(
-            ell_step_res, (pr0, torch.sum(pr0 * dang)), tol=tol,
-            max_iters=max_iters, watchdog=watchdog, trace=trace)
-        return (out[0][0], *out[1:])
-
-    def step(pr):
-        with metrics.annotate("engine.step.combine"):
-            new = sparse_step(
-                lambda v: _matvec(backend, operands, v, metrics), pr, dang,
-                d, n)
-        return new, torch.sum(torch.abs(new - pr))
-
-    return instrumented_tol_loop(step, pr0, tol=tol, max_iters=max_iters,
-                                 watchdog=watchdog, trace=trace)
-
-
-def _ppr_matvec(backend: str, operands, dang):
-    """The batched ``X -> H @ X`` of personalized PageRank.  The f32 dense
-    operand is the dangling-FIXED H (the uniform 1/n leak folded into the
-    dangling columns — right for global PageRank, wrong for PPR, where the
-    leak teleports to V); zeroing those columns reconstructs the unfixed H
-    exactly, once per call.  Reduced-precision dense tiers store H
-    unfixed, so there the same mask changes nothing."""
-    if backend == "dense":
-        scales = operands[1] if len(operands) == 2 else None
-        H = upcast_f32(operands[0]) * (1.0 - dang)[None, :]
-        return lambda X: _row_scale(H @ X, scales)
-    return lambda X: _matvec(backend, operands, X)
-
-
-def _run_ppr(operands, dang, V, d, *, backend: str, n_iters: int):
-    mv = _ppr_matvec(backend, operands, dang)
-    PR = V
-    for _ in range(n_iters):
-        PR = ppr_step_batched(mv, PR, V, dang, d)
-    return PR
-
-
-def _ppr_fused_operator(Hp, dangp, scales, Vp, d: float):
-    """The batched personalized operator on the fused tier's pre-padded,
-    transposed (Q, Mp) layout: ``Ab(X) = d * (Y + Vp * leak) + (1 - d) *
-    Vp`` with ``Y = X @ Hp.T`` from the streaming kernel.  The leak
-    ``sum(X * dangp)`` per query is taken from X before the kernel (which
-    has no leak output); an int8 layout's (1, Np) row scales multiply Y
-    after it.  ``Vp`` of width Mp serves as a (Q, Np) operand, which needs
-    square padding."""
-    if Hp.shape[0] != Hp.shape[1]:
-        raise ValueError(f"the fused tier's PPR needs a square padded "
-                         f"layout, got {tuple(Hp.shape)}")
-
-    def Ab(X):
-        leak = torch.sum(X * dangp, dim=1)                 # (Q,)
-        Y = streaming_matvec(Hp, X)
+    def upload(self, e, host, dang):
+        e._dang = e._put(dang)
+        Hp, dangp, scales = host
         if scales is not None:
-            Y = Y * scales
-        return d * (Y + Vp * leak[:, None]) + (1.0 - d) * Vp
+            # (1, Np): the fused kernel applies it per row in its epilogue
+            e._scales = e._put(scales[None, :])
+        e._operands = (Hp.to(e.device), dangp.to(e.device))
 
-    return Ab
+    def start(self, e, x0):
+        (Hp, dangp), n, d = e._operands, e.n, e.d
+        x0 = _uniform(n, dangp.device) if x0 is None else x0
+        xp0 = F.pad(x0, (0, Hp.shape[1] - n))[None, :]
+        return xp0, d * torch.sum(xp0 * dangp) / n + (1.0 - d) / n
+
+    def step(self, e, metrics):
+        (Hp, dangp), scales, n, d = e._operands, e._scales, e.n, e.d
+
+        def step(state):
+            yp, leak = pagerank_step_fused(Hp, state[0], dangp, state[1],
+                                           scales, d=d)
+            return yp, d * leak / n + (1.0 - d) / n
+        return step
+
+    def ranks(self, e, state):
+        return state[0][0, :e.n]
+
+    def push_operator(self, e, x0):
+        """Pad entries of H, dang and x0 are zero and ``real`` masks the
+        affine terms off the tail, so the residual stays zero there and
+        the frontier never touches it."""
+        (Hp, dangp), scales, n, d = e._operands, e._scales, e.n, e.d
+        Mp = Hp.shape[1]
+        real = (torch.arange(Mp, device=Hp.device) < n).to(torch.float32)[None]
+
+        def Ab(xp):
+            y = streaming_matvec(Hp, xp)
+            if scales is not None:
+                y = y * scales
+            leak = torch.sum(xp * dangp)
+            return d * (y + leak / n * real) + (1.0 - d) / n * real
+
+        return Ab, F.pad(x0, (0, Mp - n))[None, :], lambda xp: xp[0, :n]
+
+    def enter(self, e, A):
+        # queries ride the batch axis of streaming_matvec, so all Q share
+        # one sweep over Hp per step
+        Ap = np.zeros((A.shape[1], e._operands[0].shape[1]), np.float32)
+        Ap[:, :e.n] = A.T
+        return e._put(Ap)
+
+    def leave(self, e, X):
+        return X[:, :e.n].T
+
+    def ppr_operator(self, e, V):
+        """``Y = X @ Hp.T`` from the streaming kernel; the leak
+        ``sum(X * dangp)`` per query is taken from X before it (the kernel
+        has no leak output).  ``V`` of width Mp serves as a (Q, Np)
+        operand, which needs square padding."""
+        (Hp, dangp), scales, d = e._operands, e._scales, e.d
+        if Hp.shape[0] != Hp.shape[1]:
+            raise ValueError(f"the fused tier's PPR needs a square padded "
+                             f"layout, got {tuple(Hp.shape)}")
+
+        def Ab(X):
+            leak = torch.sum(X * dangp, dim=1)                 # (Q,)
+            Y = streaming_matvec(Hp, X)
+            if scales is not None:
+                Y = Y * scales
+            return d * (Y + V * leak[:, None]) + (1.0 - d) * V
+
+        return Ab
 
 
-def _run_ppr_fused(Hp, dangp, Vp, scales, *, n: int, n_iters: int,
-                   d: float):
-    # Vp: (Q, Mp) — queries ride the batch axis of streaming_matvec, so
-    # all Q teleport distributions share one sweep over Hp per iteration
-    Ab = _ppr_fused_operator(Hp, dangp, scales, Vp, d)
-    PR = Vp
-    for _ in range(n_iters):
-        PR = Ab(PR)
-    return PR[:, :n].T.contiguous()                       # (n, Q)
+class Schedules(NamedTuple):
+    """A sharded layout's loops in :mod:`~repro_torch.pagerank.distributed`."""
+    run: Callable
+    run_tol: Callable
+    push: Callable
+    ppr: Callable
 
 
-def _fused_start(x0, dangp, *, n: int, Mp: int, d: float):
-    """Padded start vector and its teleport-plus-leak scalar ``t0``."""
-    x0 = _uniform(n, dangp.device) if x0 is None else x0
-    xp0 = F.pad(x0, (0, Mp - n))[None, :]
-    return xp0, d * torch.sum(xp0 * dangp) / n + (1.0 - d) / n
+class ShardedTier(Tier):
+    """A layout cut over the engine's mesh at the padded N, built in numpy
+    as the JAX package builds it.  ``run``, ``run_tol``, ``ppr`` and the
+    dynamic engine's push are its :class:`Schedules`; the landmark push
+    runs the batched operator on the engine's PPR copy of the layout
+    (:meth:`ppr_layout`) in the padded (N_pad, Q) layout."""
+    sharded = True
+
+    def pack(self, e, src, dst, csr, dang):
+        vals, idx = self.rows(e, src, dst, csr)
+        if e.precision != "int8":
+            return vals, idx, None
+        vals, scales = quantize_rows(vals)
+        return vals, idx, scales
+
+    def upload(self, e, host, dang):
+        vals, idx, scales = host
+        e._ppr_operands = e._ppr_scales = None
+        spec, scale_spec, _ = self.specs(e)
+        extra = () if idx is None else (e._shard(idx, spec),)
+        if scales is not None:
+            e._scales = e._shard(scales, scale_spec)
+        e._operands = (e._shard(vals, spec, e.storage_dtype), *extra)
+        padded = np.zeros((e._n_pad,), np.float32)
+        padded[:e.n] = dang
+        e._dang = e._shard(padded, P())
+        e.layout = self.layout_name(e)
+
+    def adopt(self, e, layout):
+        e._operands = tuple(layout["operands"])
+        e._dang = layout["dang"]
+        e._scales = layout.get("scales")
+        e.layout = self.layout_name(e)
+
+    def ppr_layout(self, e) -> tuple[tuple, ShardedTensor | None]:
+        """The PPR copy of the layout, placed once at first use (serve
+        flushes never re-gather it, run-only engines never pay it); every
+        patch drops it."""
+        if e._ppr_operands is None:
+            spec = self.specs(e)[2]
+            e._ppr_operands = tuple(fm.reshard(o, spec) for o in e._operands)
+            e._ppr_scales = (None if e._scales is None
+                             else fm.reshard(e._scales, P()))
+        return e._ppr_operands, e._ppr_scales
+
+    def _pad_x0(self, e, x0):
+        if x0 is None or e._n_pad == e.n:
+            return x0
+        return F.pad(x0, (0, e._n_pad - e.n))
+
+    def run(self, e, n_iters):
+        return self.schedules.run(
+            *e._operands, e.mesh, n_iters, e.d, dangling=e._dang,
+            n_true=e.n, scales=e._scales, **self.axes(e)).full()[:e.n]
+
+    def run_tol(self, e, tol, x0, max_iters, watchdog, trace):
+        out = self.schedules.run_tol(
+            *e._operands, e.mesh, tol=tol, max_iters=max_iters, d=e.d,
+            dangling=e._dang, n_true=e.n, x0=self._pad_x0(e, x0),
+            watchdog=watchdog, trace=trace, scales=e._scales,
+            **self.axes(e))
+        return (out[0].full()[:e.n], *out[1:])
+
+    def push(self, e, x0, tol: float, max_pushes: int, trace: bool):
+        """The dynamic engine's shard-local push."""
+        out = self.schedules.push(
+            *e._operands, e.mesh, self._pad_x0(e, x0),
+            tol=float(np.float32(tol)), max_pushes=max_pushes, d=e.d,
+            dangling=e._dang, n_true=e.n, trace=trace, scales=e._scales,
+            **self.axes(e))
+        return (out[0].full()[:e.n], *out[1:])
+
+    def ppr(self, e, V, n_iters):
+        # the query axis is padded with zero columns to what the mesh
+        # divides, sliced back after
+        q = V.shape[1]
+        Vp = np.pad(V, ((0, 0), (0, -q % self.query_shards(e))))
+        ops, scales = self.ppr_layout(e)
+        return self.schedules.ppr(*ops, e._dang, self.enter(e, Vp), e.mesh,
+                                  n_iters, e.d, scales=scales,
+                                  **self.axes(e)).full()[:e.n, :q]
+
+    def enter(self, e, A):
+        Ap = np.zeros((e._n_pad, A.shape[1]), np.float32)
+        Ap[:e.n] = A
+        return e._put(Ap)
+
+    def leave(self, e, X):
+        return X[:e.n]
+
+    def ppr_operator(self, e, V):
+        mv = self.batched_product(e)
+        dang, d = e._dang.full(), e.d
+        return lambda X: ppr_step_batched(mv, X, V, dang, d)
 
 
-def _run_fixed_fused(Hp, dangp, scales, *, n: int, n_iters: int, d: float):
-    xp, t = _fused_start(None, dangp, n=n, Mp=Hp.shape[1], d=d)
-    for _ in range(n_iters):
-        xp, leak = pagerank_step_fused(Hp, xp, dangp, t, scales, d=d)
-        t = d * leak / n + (1.0 - d) / n
-    return xp[0, :n]
+class DenseShardedTier(ShardedTier):
+    """Dangling-unfixed dense H blocked ``P(row, col)`` over a 2-D mesh,
+    int8 scales replicated: the paper's fabric schedule, one K2 launch per
+    shard, one horizontal-bus psum and one re-injection per iteration.  Its PPR copy is the row blocks ``P(row, None)`` (one
+    more H in memory), each with its mesh column's queries."""
+    schedules = Schedules(dist.pagerank_distributed,
+                          dist.pagerank_distributed_tol,
+                          dist.push_distributed_tol,
+                          dist.ppr_distributed_dense)
+
+    def shard_multiple(self, e):
+        if len(e._axes) != 2:
+            raise ValueError("dense_sharded needs a 2-D mesh, got axes "
+                             f"{e._axes}")
+        return math.lcm(*e.mesh.shape.values())
+
+    def query_shards(self, e):
+        return e.mesh.shape[e._axes[1]]
+
+    def axes(self, e):
+        return {"row_axis": e._axes[0], "col_axis": e._axes[1]}
+
+    def specs(self, e):
+        """The layout's, the int8 scales' and the PPR copy's specs."""
+        return P(*e._axes), P(), P(e._axes[0], None)
+
+    def layout_name(self, e):
+        r, c = e.mesh.shape.values()
+        return f"dense_sharded({r}x{c} mesh, n_pad={e._n_pad})"
+
+    def rows(self, e, src, dst, csr):
+        vals = np.zeros((e._n_pad, e._n_pad), np.float32)
+        vals[:e.n, :e.n] = tr.transition_dense_np(src, dst, e.n,
+                                                  fix_dangling=False)
+        return vals, None
+
+    def batched_product(self, e):
+        ops, scales = self.ppr_layout(e)
+        return lambda X: dist.ppr_matmat_dense(ops[0], X, e.mesh,
+                                               **self.axes(e), scales=scales)
 
 
-def _run_tol_fused(Hp, dangp, tol, x0, scales, *, n: int, max_iters: int,
-                   d: float, watchdog: bool, trace: bool):
-    state0 = _fused_start(x0, dangp, n=n, Mp=Hp.shape[1], d=d)
+class EllShardedTier(ShardedTier):
+    """Full-K ELL rows sharded over the flattened mesh, int8 scales
+    row-sharded like the rows, the rank vector replicated: one all_gather
+    per iteration.  Its PPR copy is the replicated layout; the landmark
+    push takes its product on the mesh's first device."""
+    device_csr = True
+    schedules = Schedules(dist.pagerank_distributed_sparse,
+                          dist.pagerank_distributed_sparse_tol,
+                          dist.push_distributed_sparse_tol,
+                          dist.ppr_distributed_sparse)
 
-    def step(carry):
-        xp, t = carry
-        yp, leak = pagerank_step_fused(Hp, xp, dangp, t, scales, d=d)
-        res = torch.sum(torch.abs(yp[0, :n] - xp[0, :n]))
-        return (yp, d * leak / n + (1.0 - d) / n), res
+    def shard_multiple(self, e):
+        return e.mesh.size
 
-    (xp, _), iters, res, grow, ring = instrumented_tol_loop(
-        step, state0, tol=tol, max_iters=max_iters, watchdog=watchdog,
-        trace=trace)
-    return xp[0, :n], iters, res, grow, ring
+    query_shards = shard_multiple
+
+    def axes(self, e):
+        return {"axes": e._axes}
+
+    def specs(self, e):
+        return P(e._axes), P(e._axes), P()
+
+    def layout_name(self, e):
+        return (f"ell_sharded(k={e._operands[0].shape[1]}, "
+                f"shards={e.mesh.size}, n_pad={e._n_pad})")
+
+    def rows(self, e, src, dst, csr):
+        """Full-K rows from the transition CSR, read on the host, where
+        ``ell_k`` is a minimum row capacity and never a truncation (the
+        dynamic engine passes ``maxdeg + slack``)."""
+        csr = csr.to("cpu")
+        counts = np.diff(csr.indptr.numpy())
+        maxdeg = int(counts.max()) if len(counts) else 0
+        k = maxdeg if e._ell_k is None else max(int(e._ell_k), maxdeg)
+        ell = ELLMatrix.from_csr(csr, k=k)
+        vals = np.zeros((e._n_pad, ell.k), np.float32)
+        idx = np.zeros((e._n_pad, ell.k), np.int32)
+        vals[:e.n] = ell.data.numpy()
+        idx[:e.n] = ell.indices.numpy()
+        return vals, idx
+
+    def batched_product(self, e):
+        ops, scales = self.ppr_layout(e)
+        data, idx = upcast_f32(ops[0].shards[0]), ops[1].shards[0]
+        sc = None if scales is None else scales.shards[0]
+        return lambda X: self.scale_rows(
+            torch.sum(data[..., None] * X[idx], dim=1), sc)
+
+
+# every backend's tier, one instance each
+TIERS = {"dense": DenseTier(), "ell": EllTier(), "bsr": BsrTier(),
+         "fused_dense": FusedDenseTier(), "dense_sharded": DenseShardedTier(),
+         "ell_sharded": EllShardedTier()}
 
 
 def _engine_device(device, mesh: Mesh | None) -> torch.device:
@@ -513,8 +898,11 @@ class PageRankEngine:
     one); results come back on the mesh's first device.
     :meth:`from_layout` builds an engine around operands prepared
     elsewhere (e.g. by the JAX package, through
-    :func:`repro_torch.pagerank.convert.layout_from_numpy`).
+    :func:`repro_torch.pagerank.convert.layout_from_numpy`).  The layout's
+    build, step and batched operators belong to its :class:`Tier`
+    (``self._tier``, picked once from ``_TIERS`` by the backend's name).
     """
+    _TIERS = TIERS
 
     def __init__(self, src: np.ndarray, dst: np.ndarray, n: int, *,
                  d: float = 0.85, backend: str = "auto",
@@ -542,12 +930,12 @@ class PageRankEngine:
                     n_devices=None if mesh is None else mesh.size)
             if fields is not None:              # None from a NullRegistry
                 fields["backend"] = backend
-            self._init_common(n, d, backend, precision, dev, metrics, mesh)
+            self._init_common(n, d, backend, precision, dev, mesh)
             self._ell_k = ell_k
             self._bsr_block_size = int(bsr_block_size)
             self._prepare_layout(src, dst, edges.on_device)
 
-    def _init_common(self, n, d, backend, precision, device, metrics,
+    def _init_common(self, n, d, backend, precision, device,
                      mesh=None) -> None:
         if backend not in BACKENDS:
             raise ValueError(
@@ -556,6 +944,7 @@ class PageRankEngine:
         self.d = float(d)
         self.device = device
         self.backend = backend
+        self._tier = self._TIERS[backend]
         self.precision = resolve_precision(precision)
         self.storage_dtype = STORAGE_DTYPES[self.precision]
         self._scales = None
@@ -569,26 +958,16 @@ class PageRankEngine:
         self._ppr_scales = None
         # the split-ELL kernel's metadata of an ell layout (ell_meta)
         self._ell_meta = None
-        if backend in SHARDED_BACKENDS:
+        if self._tier.sharded:
             self.mesh = (mesh if mesh is not None
                          else default_mesh(backend, device))
             self._axes = tuple(self.mesh.axis_names)
-            if backend == "dense_sharded" and len(self._axes) != 2:
-                raise ValueError("dense_sharded needs a 2-D mesh, got axes "
-                                 f"{self._axes}")
-            shards = (math.lcm(*self.mesh.shape.values())
-                      if backend == "dense_sharded" else self.mesh.size)
+            shards = self._tier.shard_multiple(self)
             self._n_pad = -(-self.n // shards) * shards
-        # the layout tag the runners dispatch _matvec on: the backend
-        # itself, except the dynamic engine's patchable SELL tier ("sell"
-        # while backend == "ell")
-        self._mv_backend = backend
         # the last run_tol's SolveInfo and the warn-once latch for
         # silently exhausted solves
         self.last_solve_info = None
         self._warned_nonconverged = False
-        # metrics sink: the process default registry unless injected
-        self.metrics = metrics if metrics is not None else default_registry()
 
     @classmethod
     def from_layout(cls, backend: str, layout: dict, n: int, *,
@@ -602,25 +981,13 @@ class PageRankEngine:
         ``None`` where the layout came without it)."""
         eng = cls.__new__(cls)
         mesh = layout.get("mesh")
-        dev = _engine_device(device, mesh)
-        eng._init_common(n, d, backend, precision, dev, metrics, mesh)
+        eng.metrics = metrics if metrics is not None else default_registry()
+        eng._init_common(n, d, backend, precision,
+                         _engine_device(device, mesh), mesh)
         eng._keys = layout.get("keys")
         eng._outdeg = layout.get("outdeg")
         eng._indeg = layout.get("indeg")
-        if backend in SHARDED_BACKENDS:
-            eng._operands = tuple(layout["operands"])
-            eng._dang = layout["dang"]
-            eng._scales = layout.get("scales")
-            eng.layout = eng._sharded_layout_name(
-                eng._operands[0].shape[1] if backend == "ell_sharded"
-                else None)
-        else:
-            eng._operands = tuple(o.to(dev) for o in layout["operands"])
-            eng._dang = layout["dang"].to(dev)
-            if backend == "ell":            # no counts: all k0 slots read
-                eng._ell_meta = ell_meta(eng._operands[2], n)
-            if layout.get("scales") is not None:
-                eng._scales = layout["scales"].to(dev)
+        eng._tier.adopt(eng, layout)
         if eng.precision != "f32":
             eng.layout = f"{eng.layout}[{eng.precision}]"
         eng._record_layout_bytes()
@@ -638,49 +1005,16 @@ class PageRankEngine:
             t = t.to(dtype)
         return ShardedTensor.from_global(t, self.mesh, spec)
 
-    def _pad_replicated(self, v: np.ndarray) -> ShardedTensor:
-        padded = np.zeros((self._n_pad,), np.float32)
-        padded[:self.n] = v
-        return self._shard(padded, P())
-
-    def _sharded_layout_name(self, k: int | None) -> str:
-        if self.backend == "dense_sharded":
-            r, c = self.mesh.shape.values()
-            return f"dense_sharded({r}x{c} mesh, n_pad={self._n_pad})"
-        return (f"ell_sharded(k={k}, shards={self.mesh.size}, "
-                f"n_pad={self._n_pad})")
-
     def _prepare_layout(self, src: np.ndarray, dst: np.ndarray,
                         edges: DeviceEdges | None = None) -> None:
-        """Build the backend's prepared device layout from a deduplicated
-        COO edge list.  The ``ell`` tiers build their transition CSR on the
-        engine's device from ``edges`` (the edge list uploaded where none
-        is given), in the span ``prepare.csr``; ``prepare.pack`` holds the
-        rest of the build: ``ell``'s split ELL on the device,
+        """Build the tier's prepared device layout from a deduplicated COO
+        edge list (:meth:`Tier.build`): ``ell``'s split ELL on the device,
         ``ell_sharded``'s full-width rows and the other tiers' layouts in
-        numpy, as the JAX package builds them.  ``prepare.upload`` places
-        what the pack left on the host.  Each phase ends in a synchronize
-        unless the registry is a :class:`NullRegistry`."""
-        self._mv_backend = self.backend
+        numpy, as the JAX package builds them.  Each phase ends in a
+        synchronize unless the registry is a :class:`NullRegistry`."""
         self.layout = self.backend
         self._scales = None
-        csr = None
-        if self.backend in ("ell", "ell_sharded"):
-            with self._phase("prepare.csr"):
-                if edges is None:
-                    edges = _device_edges(_device_ids(src, self.device),
-                                          _device_ids(dst, self.device),
-                                          self.n)
-                csr = _transition_csr(edges, self.n)
-        with self._phase("prepare.pack"):
-            if self.backend == "ell":
-                dang = (edges.outdeg == 0).float()
-            else:
-                dang = tr.dangling_mask(src, self.n).astype(np.float32)
-            host = self._pack(src, dst, dang, csr)
-        del edges, csr
-        with self._phase("prepare.upload"):
-            self._upload(host, dang)
+        self._tier.build(self, src, dst, edges)
         if self.precision != "f32":
             self.layout = f"{self.layout}[{self.precision}]"
         self._record_layout_bytes()
@@ -696,67 +1030,6 @@ class PageRankEngine:
             if not isinstance(self.metrics, NullRegistry):
                 self._synchronize()
 
-    def _pack(self, src: np.ndarray, dst: np.ndarray, dang, csr) -> tuple:
-        """The tier's layout: on ``ell`` the device operands in the storage
-        dtype (and the split-ELL kernel's ``_ell_meta`` beside them), on
-        the other tiers the host layout (numpy arrays; CPU tensors on
-        ``fused_dense``), quantized there where the tier stores int8."""
-        n = self.n
-        if self.backend == "ell":
-            ops, k0, ov_nnz = _split_ell(csr, k0=self._ell_k)
-            self.layout = f"ell(k0={k0})+overflow(nnz={ov_nnz})"
-            self._ell_meta = ell_meta(
-                ops[2], n, torch.clamp(csr.indptr.diff(), max=k0))
-            return self._quantize_split_ell(ops)
-        if self.backend == "bsr":
-            return self._pack_bsr(src, dst)
-        if self.backend in SHARDED_BACKENDS:
-            return self._pack_sharded(src, dst, csr)
-        if self.backend == "dense":
-            if self.precision == "f32":
-                return (tr.transition_dense_np(src, dst, n),)
-            # reduced tiers store H dangling-UNFIXED and pay the explicit
-            # scalar leak through sparse_step
-            H = tr.transition_dense_np(src, dst, n, fix_dangling=False)
-            if self.precision != "int8":
-                return (H,)
-            scales = rowmax_scales(np.abs(H).max(axis=1, initial=0.0))
-            return quantize_int8(H, scales[:, None]), scales
-        # fused_dense
-        H = torch.from_numpy(
-            tr.transition_dense_np(src, dst, n, fix_dangling=False))
-        Hp, dangp = pad_pagerank_operands(H, torch.from_numpy(dang))
-        if self.precision != "int8":
-            return Hp.to(self.storage_dtype), dangp, None
-        Hp_np = Hp.numpy()
-        scales = rowmax_scales(np.abs(Hp_np).max(axis=1, initial=0.0))
-        return (torch.from_numpy(quantize_int8(Hp_np, scales[:, None])),
-                dangp, scales)
-
-    def _upload(self, host: tuple, dang: np.ndarray) -> None:
-        """Place :meth:`_pack`'s layout on the engine's device (on the
-        mesh for the sharded tiers)."""
-        if self.backend in SHARDED_BACKENDS:
-            self._upload_sharded(host, dang)
-            return
-        if self.backend == "ell":               # built on the device
-            self._operands, self._dang = host, dang
-            return
-        self._dang = self._put(dang)
-        if self.backend == "bsr":
-            self._operands = (self._upload_bsr(host),)
-        elif self.backend == "dense":
-            self._operands = (
-                tuple(self._put(a) for a in host) if self.precision == "int8"
-                else (self._put(host[0]).to(self.storage_dtype),))
-        else:                                   # fused_dense
-            Hp, dangp, scales = host
-            if scales is not None:
-                # (1, Np): the fused kernel applies it per row in its
-                # epilogue
-                self._scales = self._put(scales[None, :])
-            self._operands = (Hp.to(self.device), dangp.to(self.device))
-
     def _synchronize(self) -> None:
         """Wait for the engine's cards (the mesh's, on the sharded tiers)
         to finish the placement."""
@@ -764,98 +1037,6 @@ class PageRankEngine:
                    else [self.device])
         for dev in {d for d in devices if d.type == "cuda"}:
             torch.cuda.synchronize(dev)
-
-    def _pack_sharded(self, src: np.ndarray, dst: np.ndarray,
-                      csr) -> tuple:
-        """The two mesh layouts, built in numpy at the padded N.
-        ``dense_sharded``: H dangling-UNFIXED (explicit leak).
-        ``ell_sharded``: full-K ELL rows from the transition CSR, read on
-        the host, where ``ell_k`` is a minimum row capacity and never a
-        truncation (the dynamic engine passes ``maxdeg + slack``).  Returns
-        ``(vals, idx or None, int8 scales or None, k or None)``."""
-        n, n_pad = self.n, self._n_pad
-        if self.backend == "dense_sharded":
-            vals = np.zeros((n_pad, n_pad), np.float32)
-            vals[:n, :n] = tr.transition_dense_np(src, dst, n,
-                                                  fix_dangling=False)
-            idx = k = None
-        else:
-            csr = csr.to("cpu")
-            counts = np.diff(csr.indptr.numpy())
-            maxdeg = int(counts.max()) if len(counts) else 0
-            k = maxdeg if self._ell_k is None else max(int(self._ell_k),
-                                                       maxdeg)
-            ell = ELLMatrix.from_csr(csr, k=k)
-            vals = np.zeros((n_pad, ell.k), np.float32)
-            idx = np.zeros((n_pad, ell.k), np.int32)
-            vals[:n] = ell.data.numpy()
-            idx[:n] = ell.indices.numpy()
-            k = ell.k
-        scales = None
-        if self.precision == "int8":
-            scales = rowmax_scales(np.abs(vals).max(axis=1, initial=0.0))
-            vals = quantize_int8(vals, scales[:, None])
-        return vals, idx, scales, k
-
-    def _upload_sharded(self, host: tuple, dang: np.ndarray) -> None:
-        """Cut :meth:`_pack_sharded`'s layout over the mesh:
-        ``dense_sharded`` blocked ``P(row, col)`` with int8 scales
-        replicated, ``ell_sharded`` over the flattened mesh with int8
-        scales row-sharded like the rows."""
-        vals, idx, scales, k = host
-        self._ppr_operands = self._ppr_scales = None
-        dense = self.backend == "dense_sharded"
-        spec = P(*self._axes) if dense else P(self._axes)
-        extra = () if idx is None else (self._shard(idx, spec),)
-        if scales is not None:
-            self._scales = self._shard(scales, P() if dense else spec)
-        self._operands = (self._shard(vals, spec, self.storage_dtype),
-                          *extra)
-        self._dang = self._pad_replicated(dang)
-        self.layout = self._sharded_layout_name(k)
-
-    def _pack_bsr(self, src: np.ndarray, dst: np.ndarray) -> tuple:
-        """The dangling-unfixed block layout on the host: ``(blocks,
-        block_cols, shape, int8 row scales or None)``.  int8 scales are
-        per row, the abs-max over the row's whole block budget (slot and
-        in-block column)."""
-        bsr = tr.build_transition_bsr(src, dst, self.n,
-                                      bs=self._bsr_block_size, device="cpu")
-        blocks = bsr.blocks.numpy()
-        cols = bsr.block_cols.numpy()
-        if self.precision != "int8":
-            return blocks, cols, bsr.shape, None
-        nb_r, _, bs, _ = blocks.shape
-        # axis 2 is the row within a block: reduce over (slot, col)
-        absmax = np.abs(blocks).max(axis=(1, 3))            # (nb_r, bs)
-        scales = rowmax_scales(absmax.reshape(-1))          # (nb_r * bs,)
-        return (quantize_int8(blocks, scales.reshape(nb_r, 1, bs, 1)), cols,
-                bsr.shape, scales)
-
-    def _upload_bsr(self, host: tuple) -> BSRMatrix:
-        """:meth:`_pack_bsr`'s layout on the device, in the storage
-        dtype."""
-        blocks, cols, shape, scales = host
-        if scales is None:
-            return BSRMatrix(self._put(blocks).to(self.storage_dtype),
-                             self._put(cols), shape=shape)
-        return BSRMatrix(self._put(blocks), self._put(cols), shape=shape,
-                         row_scales=self._put(scales))
-
-    def _quantize_split_ell(self, ops: tuple) -> tuple:
-        """A split-ELL layout in the storage dtype, on its device.  int8
-        scales are computed over the FULL row — the ELL block's entries
-        and the overflow tail share the row's abs-max — and appended as a
-        sixth operand."""
-        data, idx, ov_r, ov_c, ov_v = ops
-        if self.precision != "int8":
-            return (data.to(self.storage_dtype), idx, ov_r, ov_c,
-                    ov_v.to(self.storage_dtype))
-        absmax = data.abs().amax(dim=1).scatter_reduce(
-            0, ov_r.long(), ov_v.abs(), "amax")
-        scales = rowmax_scales(absmax)
-        return (quantize_int8(data, scales[:, None]), idx, ov_r, ov_c,
-                quantize_int8(ov_v, scales[ov_r]), scales)
 
     def _record_layout_bytes(self) -> None:
         """Operand-byte accounting of the prepared layout, exported as the
@@ -871,27 +1052,6 @@ class PageRankEngine:
         tensors."""
         return self._operands
 
-    def _pad_x0(self, x0: torch.Tensor | None) -> torch.Tensor | None:
-        """Zero-pad a warm-start vector to the sharded tiers' padded N."""
-        if x0 is None or self._n_pad == self.n:
-            return x0
-        return F.pad(x0, (0, self._n_pad - self.n))
-
-    def _ppr_layout(self) -> tuple[tuple, ShardedTensor | None]:
-        """The sharded tiers' PPR copy of the layout, placed once at first
-        use (serve flushes never re-gather it, run-only engines never pay
-        it): the row blocks ``P(row, None)`` of H on ``dense_sharded`` (one
-        more H in memory), the replicated ELL operands on
-        ``ell_sharded``."""
-        if self._ppr_operands is None:
-            spec = (P(self._axes[0], None)
-                    if self.backend == "dense_sharded" else P())
-            self._ppr_operands = tuple(fm.reshard(o, spec)
-                                       for o in self._operands)
-            self._ppr_scales = (None if self._scales is None
-                                else fm.reshard(self._scales, P()))
-        return self._ppr_operands, self._ppr_scales
-
     def lower_run(self) -> dict:
         """The per-iteration schedule of ``run`` on the sharded tiers, the
         counterpart of the JAX package's AOT lowering for collective
@@ -899,7 +1059,7 @@ class PageRankEngine:
         counters zeroed before and read after.  Returns the collectives
         by kind, the bytes each kind moved, and the shard-local K2 calls by
         (storage type, batch size) — K2 launches on the card."""
-        if self.backend not in SHARDED_BACKENDS:
+        if not self._tier.sharded:
             raise ValueError(f"lower_run audits the sharded tiers, not "
                              f"{self.backend!r}")
         fm.reset_counts()
@@ -918,27 +1078,7 @@ class PageRankEngine:
         """Fixed-schedule power iteration, issued with no host sync, in
         the profiler range ``engine.run``."""
         with self.metrics.annotate("engine.run"):
-            if self.backend == "dense_sharded":
-                return dist.pagerank_distributed(
-                    self._operands[0], self.mesh, n_iters, self.d,
-                    *self._axes, dangling=self._dang, n_true=self.n,
-                    scales=self._scales).full()[:self.n]
-            if self.backend == "ell_sharded":
-                return dist.pagerank_distributed_sparse(
-                    *self._operands, self.mesh, n_iters, self.d,
-                    dangling=self._dang, axes=self._axes, n_true=self.n,
-                    scales=self._scales).full()[:self.n]
-            if self.backend == "fused_dense":
-                Hp, dangp = self._operands
-                return _run_fixed_fused(Hp, dangp, self._scales, n=self.n,
-                                        n_iters=n_iters, d=self.d)
-            if self.backend == "dense" and self.precision == "f32":
-                return pagerank_dense_fixed(self._operands[0],
-                                            n_iters=n_iters, d=self.d)
-            return _run_fixed(self._operands, self._dang, self.d,
-                              backend=self._mv_backend, n=self.n,
-                              n_iters=n_iters, metrics=self.metrics,
-                              meta=self._ell_meta)
+            return self._tier.run(self, n_iters)
 
     def run_tol(self, tol: float = 1e-6, max_iters: int = 1000,
                 x0: np.ndarray | torch.Tensor | None = None, *,
@@ -964,34 +1104,8 @@ class PageRankEngine:
         tol_f32 = solve_dtype(tol, name="tol")
         with self.metrics.span("solve", backend=self.backend), \
                 self.metrics.annotate("engine.run"):
-            if self.backend in SHARDED_BACKENDS:
-                kw = dict(tol=tol_f32, max_iters=max_iters, d=self.d,
-                          dangling=self._dang, n_true=self.n,
-                          x0=self._pad_x0(x0), watchdog=watchdog,
-                          trace=trace, scales=self._scales)
-                if self.backend == "dense_sharded":
-                    out = dist.pagerank_distributed_tol(
-                        self._operands[0], self.mesh,
-                        row_axis=self._axes[0], col_axis=self._axes[1], **kw)
-                else:
-                    out = dist.pagerank_distributed_sparse_tol(
-                        *self._operands, self.mesh, axes=self._axes, **kw)
-                out = (out[0].full()[:self.n], *out[1:])
-            elif self.backend == "fused_dense":
-                Hp, dangp = self._operands
-                out = _run_tol_fused(
-                    Hp, dangp, tol_f32, x0, self._scales, n=self.n,
-                    max_iters=max_iters, d=self.d, watchdog=watchdog, trace=trace)
-            elif self.backend == "dense" and self.precision == "f32":
-                out = pagerank_dense(self._operands[0], d=self.d,
-                                     tol=tol_f32, max_iters=max_iters,
-                                     x0=x0, watchdog=watchdog, trace=trace)
-            else:
-                out = _run_tol(self._operands, self._dang, self.d, tol_f32,
-                               x0, backend=self._mv_backend, n=self.n,
-                               max_iters=max_iters, watchdog=watchdog,
-                               trace=trace, metrics=self.metrics,
-                               meta=self._ell_meta)
+            out = self._tier.run_tol(self, tol_f32, x0, max_iters, watchdog,
+                                     trace)
             return self._finish_solve(out, tol, max_iters, raise_on_fail)
 
     def ppr(self, seed_sets: Sequence[np.ndarray],
@@ -1003,39 +1117,8 @@ class PageRankEngine:
         with self.metrics.span("ppr", backend=self.backend,
                                q=len(seed_sets)):
             self.metrics.counter("engine.ppr_queries").inc(len(seed_sets))
-            return self._ppr(seed_sets, n_iters)
-
-    def _ppr(self, seed_sets: Sequence[np.ndarray],
-             n_iters: int) -> torch.Tensor:
-        V = seed_matrix(self.n, seed_sets)
-        if self.backend in SHARDED_BACKENDS:
-            # the query axis is padded to the mesh column count (dense) or
-            # the shard count (ell) with zero columns, sliced back after
-            q = V.shape[1]
-            q_shards = (self.mesh.shape[self._axes[1]]
-                        if self.backend == "dense_sharded"
-                        else self.mesh.size)
-            q_pad = -(-q // q_shards) * q_shards
-            Vp = np.zeros((self._n_pad, q_pad), np.float32)
-            Vp[:self.n, :q] = V
-            ops, scales = self._ppr_layout()
-            if self.backend == "dense_sharded":
-                PR = dist.ppr_distributed_dense(
-                    ops[0], self._dang, self._put(Vp), self.mesh, n_iters,
-                    self.d, *self._axes, scales=scales)
-            else:
-                PR = dist.ppr_distributed_sparse(
-                    *ops, self._dang, self._put(Vp), self.mesh, n_iters,
-                    self.d, axes=self._axes, scales=scales)
-            return PR.full()[:self.n, :q]
-        if self.backend == "fused_dense":
-            Hp, dangp = self._operands
-            Vp = np.zeros((V.shape[1], Hp.shape[1]), np.float32)
-            Vp[:, :self.n] = V.T
-            return _run_ppr_fused(Hp, dangp, self._put(Vp), self._scales,
-                                  n=self.n, n_iters=n_iters, d=self.d)
-        return _run_ppr(self._operands, self._dang, self._put(V), self.d,
-                        backend=self._mv_backend, n_iters=n_iters)
+            return self._tier.ppr(self, seed_matrix(self.n, seed_sets),
+                                  n_iters)
 
     def _finish_solve(self, out, tol: float, max_iters: int,
                       raise_on_fail: bool) -> SolveResult:

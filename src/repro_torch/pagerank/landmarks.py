@@ -46,14 +46,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.fabric_matvec import ShardedTensor
-from repro_torch.kernels.common import upcast_f32
 from repro_torch.obs.registry import default_registry
-from repro_torch.obs.trace import instrumented_tol_loop
-from repro_torch.pagerank.distributed import ppr_matmat_dense
-from repro_torch.pagerank.engine import (SHARDED_BACKENDS,
-                                         _ppr_fused_operator, _ppr_matvec,
-                                         _row_scale)
-from repro_torch.pagerank.steps import ppr_step_batched, seed_matrix
+from repro_torch.pagerank.steps import frontier_push, seed_matrix
 
 __all__ = ["LandmarkIndex"]
 
@@ -63,78 +57,6 @@ def _key_slice(sorted_keys: np.ndarray, u: int, n: int) -> np.ndarray:
     lo = np.searchsorted(sorted_keys, u * np.int64(n))
     hi = np.searchsorted(sorted_keys, (u + 1) * np.int64(n))
     return (sorted_keys[lo:hi] % n).astype(np.int64)
-
-
-# --------------------------------------------------------------------------- #
-# batched Gauss–Southwell residual push on the personalized operator          #
-#                                                                             #
-# Ab(X) = d·(H·X + V·leak) + (1−d)·V on the shared instrumented tolerance     #
-# loop.  The loop residual is the MAX per-column L1 residual, so exit means  #
-# every query met the bound; per-column residuals come back so the caller    #
-# can fall back per query when the loop exhausted max_pushes.  ``axis`` is   #
-# the node axis: 0 for the (N, Q) layout, 1 for the fused tier's (Q, Np).    #
-# --------------------------------------------------------------------------- #
-def _batched_push(Ab, X0, tol, n, max_pushes, axis: int = 0):
-    thresh = tol / n
-
-    def step(state):
-        X, R = state
-        X = X + R * (torch.abs(R) >= thresh).to(X.dtype)
-        R = Ab(X) - X
-        return (X, R), torch.max(torch.sum(torch.abs(R), dim=axis))
-
-    R0 = Ab(X0) - X0
-    (X, R), iters, res, grow, _ = instrumented_tol_loop(
-        step, (X0, R0), tol=tol, max_iters=max_pushes, watchdog=True,
-        trace=False, res0=torch.max(torch.sum(torch.abs(R0), dim=axis)))
-    return X, torch.sum(torch.abs(R), dim=axis), iters, res, grow
-
-
-def _hub_push(operands, dang, V, X0, tol, *, backend: str, n: int,
-              max_pushes: int, d: float):
-    """The push on the ``dense`` and ``ell`` tiers' (N, Q) layout; the f32
-    dense operand's dangling fix is undone as in the engine's PPR."""
-    mv = _ppr_matvec(backend, operands, dang)
-
-    def Ab(X):
-        return ppr_step_batched(mv, X, V, dang, d)
-
-    return _batched_push(Ab, X0, tol, n, max_pushes)
-
-
-def _hub_push_sharded(e, V, X0, tol, *, max_pushes: int):
-    """The push on a sharded engine's PPR copy, in the (N_pad, Q) layout:
-    ``dense_sharded`` through its row blocks (K2), ``ell_sharded`` through
-    the replicated full-K ELL operands on the mesh's first device."""
-    ops, scales = e._ppr_layout()
-    dang = e._dang.full()
-    if e.backend == "dense_sharded":
-        def mv(X):
-            return ppr_matmat_dense(ops[0], X, e.mesh, *e._axes,
-                                    scales=scales)
-    else:
-        data, idx = (upcast_f32(ops[0].shards[0]), ops[1].shards[0])
-        sc = None if scales is None else scales.shards[0]
-
-        def mv(X):
-            return _row_scale(torch.sum(data[..., None] * X[idx], dim=1), sc)
-
-    def Ab(X):
-        return ppr_step_batched(mv, X, V, dang, e.d)
-
-    return _batched_push(Ab, X0, tol, e.n, max_pushes)
-
-
-def _hub_push_fused(Hp, dangp, scales, Vp, X0p, tol, *, n: int,
-                    max_pushes: int, d: float):
-    """The push on the fused tier's pre-padded transposed (Q, Mp) layout,
-    one streaming-kernel launch per sweep (plus one for the start
-    residual); pad entries of H / dang / V / X0 are zero, so their
-    residual stays zero and the frontier never touches the pad tail."""
-    Ab = _ppr_fused_operator(Hp, dangp, scales, Vp, d)
-    Xp, res_col, iters, res, grow = _batched_push(Ab, X0p, tol, n,
-                                                  max_pushes, axis=1)
-    return Xp[:, :n].T, res_col, iters, res, grow
 
 
 # --------------------------------------------------------------------------- #
@@ -298,33 +220,22 @@ class LandmarkIndex:
                              for j in range(q)],
                    "coverage": coverage}
 
-    # ------------------------- backend dispatch ------------------------ #
+    # ------------------------------ push ------------------------------- #
     def _push(self, V, X0, tol, max_pushes):
-        """One push on the engine's device; the result comes to the host
-        in one copy: ``(X (n, Q), per-column residual (Q,), sweeps)``."""
+        """The batched residual push (:func:`frontier_push`) on the
+        engine's personalized operator ``Ab(X) = d·(H·X + V·leak) +
+        (1−d)·V``, in its tier's layout.  The loop residual is the MAX
+        per-column L1 residual, so exit means every query met the bound;
+        the per-column residuals come back so the caller can fall back per
+        query when the loop exhausted ``max_pushes``.  The result comes to
+        the host in one copy: ``(X (n, Q), per-column residual (Q,),
+        sweeps)``."""
         e = self.engine
-        if e.backend == "fused_dense":
-            Hp, dangp = e._operands
-            Mp, q = Hp.shape[1], V.shape[1]
-            Vp = np.zeros((q, Mp), np.float32)
-            X0p = np.zeros((q, Mp), np.float32)
-            Vp[:, :e.n], X0p[:, :e.n] = V.T, X0.T
-            out = _hub_push_fused(Hp, dangp, e._scales, e._put(Vp),
-                                  e._put(X0p), tol, n=e.n,
-                                  max_pushes=max_pushes, d=e.d)
-        elif e.backend in SHARDED_BACKENDS:
-            q = V.shape[1]
-            Vp = np.zeros((e._n_pad, q), np.float32)
-            X0p = np.zeros((e._n_pad, q), np.float32)
-            Vp[:e.n], X0p[:e.n] = V, X0
-            out = _hub_push_sharded(e, e._put(Vp), e._put(X0p), tol,
-                                    max_pushes=max_pushes)
-            out = (out[0][:e.n], *out[1:])
-        else:
-            # the layout tag, not the backend: a dynamic ell engine pushes
-            # on its SELL layout
-            out = _hub_push(e._operands, e._dang, e._put(V), e._put(X0),
-                            tol, backend=e._mv_backend, n=e.n,
-                            max_pushes=max_pushes, d=e.d)
-        X, res_col, sweeps = (t.cpu() for t in out[:3])
-        return X.numpy(), res_col.numpy(), int(sweeps)
+        tier, axis = e._tier, e._tier.node_axis
+        Ab = tier.ppr_operator(e, tier.enter(e, V))
+        X, R, sweeps, _, _, _ = frontier_push(
+            Ab, tier.enter(e, X0), tol, e.n, max_pushes,
+            residual=lambda R: torch.max(torch.sum(torch.abs(R), dim=axis)))
+        res_col = torch.sum(torch.abs(R), dim=axis).cpu()
+        return (tier.leave(e, X).cpu().numpy(), res_col.numpy(),
+                int(sweeps.cpu()))

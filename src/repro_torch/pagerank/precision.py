@@ -25,7 +25,7 @@ import torch
 
 __all__ = ["PRECISIONS", "STORAGE_DTYPES", "SOLVE_DTYPE",
            "resolve_precision", "solve_dtype", "rowmax_scales",
-           "quantize_int8", "layout_nbytes"]
+           "quantize_int8", "quantize_rows", "layout_nbytes"]
 
 PRECISIONS = ("f32", "bf16", "f16", "int8")
 
@@ -102,6 +102,13 @@ def quantize_int8(vals: np.ndarray, scales: np.ndarray) -> np.ndarray:
         return q.clamp_(-127, 127).to(torch.int8)
     q = np.rint(np.asarray(vals, np.float32) / scales)
     return np.clip(q, -127, 127).astype(np.int8)
+
+
+def quantize_rows(vals: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """A 2-D host array quantized to int8 by rows: ``(q, scales)``, the
+    scales from each row's abs-max."""
+    scales = rowmax_scales(np.abs(vals).max(axis=1, initial=0.0))
+    return quantize_int8(vals, scales[:, None]), scales
 
 
 def _leaves(tree):

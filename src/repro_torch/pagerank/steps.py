@@ -12,8 +12,10 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import instrumented_tol_loop
+
 __all__ = ["dense_step", "sparse_step", "ppr_step", "ppr_step_batched",
-           "seed_matrix"]
+           "frontier_push", "seed_matrix"]
 
 
 def dense_step(H: torch.Tensor, pr: torch.Tensor, d: float) -> torch.Tensor:
@@ -45,6 +47,33 @@ def ppr_step_batched(matvec: Callable[[torch.Tensor], torch.Tensor],
     the single sweep over H inside ``matvec``."""
     leak = torch.sum(PR * dang[:, None], dim=0)           # (Q,)
     return d * (matvec(PR) + V * leak[None, :]) + (1.0 - d) * V
+
+
+def frontier_push(Ab: Callable[[torch.Tensor], torch.Tensor],
+                  x0: torch.Tensor, tol, n: int, max_pushes: int, *,
+                  residual: Callable[[torch.Tensor], torch.Tensor],
+                  trace: bool = False):
+    """Gauss–Southwell push to the fixed point ``x = Ab(x)`` of a damped
+    affine operator, for one vector or a block of queries.  Every sweep
+    pushes the whole frontier mask ``|r| ≥ tol/n`` into the iterate and
+    refreshes the residual ``r = Ab(x) − x`` from scratch, on the chunked
+    tolerance loop with its watchdog; ``residual(r)`` is the loop's exit
+    measure.  The real initial residual seeds the loop (on the device), so
+    an already-converged frontier takes no sweep.  Returns ``(x, r, iters,
+    residual, grow, ring)``."""
+    thresh = tol / n
+
+    def step(state):
+        x, r = state
+        x = x + r * (torch.abs(r) >= thresh).to(x.dtype)
+        r = Ab(x) - x
+        return (x, r), residual(r)
+
+    r0 = Ab(x0) - x0
+    (x, r), iters, res, grow, ring = instrumented_tol_loop(
+        step, (x0, r0), tol=tol, max_iters=max_pushes, watchdog=True,
+        trace=trace, res0=residual(r0))
+    return x, r, iters, res, grow, ring
 
 
 def seed_matrix(n: int, seed_sets: Sequence[np.ndarray]) -> np.ndarray:

@@ -48,7 +48,7 @@ from repro_torch.obs.registry import NullRegistry
 from repro_torch.pagerank import (DynamicPageRankEngine, LandmarkIndex,
                                   PageRankEngine)
 from repro_torch.pagerank.dense import pagerank_dense_fixed
-from repro_torch.pagerank.engine import _matvec
+from repro_torch.pagerank.engine import TIERS
 
 pytestmark = pytest.mark.cuda
 
@@ -558,10 +558,10 @@ def _f64_steps(eng, n_iters):
     engine's own operands: the exact sums the float32 steps round."""
     ops = tuple(o.double() if o.is_floating_point() else o
                 for o in eng.operands)
-    dang, n = eng._dang.double(), eng.n
+    dang, n, ell = eng._dang.double(), eng.n, TIERS["ell"]
     x = torch.full((n,), 1.0 / n, dtype=torch.float64, device=dang.device)
     for _ in range(n_iters):
-        x = eng.d * (_matvec("ell", ops, x) + torch.sum(x * dang) / n) \
+        x = eng.d * (ell.product(ops, x) + torch.sum(x * dang) / n) \
             + (1.0 - eng.d) / n
     return x
 

@@ -24,6 +24,7 @@ from repro.serve import ResultCache as JCache
 from repro_torch.graph import delta as tdelta
 from repro_torch.obs import registry as treg
 from repro_torch.pagerank import dynamic as tdyn
+from repro_torch.pagerank import engine as tengine
 from repro_torch.pagerank import (DynamicPageRankEngine, LandmarkIndex,
                                   PageRankEngine)
 from repro_torch.serve import PageRankQueryEngine, ResultCache
@@ -389,13 +390,13 @@ def test_fused_push_runs_on_the_streaming_kernel(net, monkeypatch):
     _, t = _dyn_pair(net, "fused_dense")
     t.run_tol(1e-7, max_iters=500)
     calls = []
-    real = tdyn.streaming_matvec
+    real = tengine.streaming_matvec
 
     def spy(W, X):
         calls.append(tuple(X.shape))
         return real(W, X)
 
-    monkeypatch.setattr(tdyn, "streaming_matvec", spy)
+    monkeypatch.setattr(tengine, "streaming_matvec", spy)
     iu, iv = _absent_pairs(src, dst, N, 2, seed=8)
     _, info = t.update(tdelta.GraphDelta.inserts(iu, iv))
     assert info.strategy == "push"
@@ -405,10 +406,10 @@ def test_fused_push_runs_on_the_streaming_kernel(net, monkeypatch):
 
 def test_dynamic_ell_serves_ppr_and_landmarks_on_sell(net):
     """The dynamic ell tier's SELL layout serves the static tier's PPR,
-    and the landmark push dispatches on the layout tag ("sell")."""
+    and the landmark push runs on the engine's tier (SELL)."""
     src, dst = net
     j, t = _dyn_pair(net, "ell")
-    assert t._mv_backend == "sell" and t.backend == "ell"
+    assert isinstance(t._tier, tdyn.SellTier) and t.backend == "ell"
     sets = [np.array([1, 2]), np.array([7])]
     static = PageRankEngine(src, dst, N, backend="ell", device="cpu",
                             metrics=treg.NullRegistry())

@@ -1,8 +1,8 @@
 """PyTorch port, the split-ELL step of the ``ell`` tier on the CPU: the
 plain version of the card's kernel (``kernels/ell_step.ell_step_ref``,
 what ``ell_step`` runs on CPU tensors) against today's eager step,
-``_matvec("ell")`` then ``sparse_step``, and the metadata ``ell_meta``
-builds beside the operands.
+the ``ell`` tier's eager product then ``sparse_step``, and the metadata
+``ell_meta`` builds beside the operands.
 
 The eager step adds a row's overflow in one sequential ``index_add_``; the
 plain version sums it as the kernel does, by runs of ``RUN`` entries,
@@ -23,7 +23,7 @@ from repro_torch.kernels.ell_step import (CHUNK, ROWS_PER_BLOCK, ell_meta,
 from repro_torch.obs.registry import NullRegistry
 from repro_torch.pagerank import PageRankEngine
 from repro_torch.pagerank.convert import layout_from_numpy
-from repro_torch.pagerank.engine import _matvec
+from repro_torch.pagerank.engine import TIERS
 from repro_torch.pagerank.precision import PRECISIONS
 from repro_torch.pagerank.steps import sparse_step
 from test_torch_layout_build import CASES
@@ -50,7 +50,7 @@ def _engine(case, **kw):
 
 def _eager(eng, x, operands=None):
     ops = eng.operands if operands is None else operands
-    return sparse_step(lambda v: _matvec("ell", ops, v), x,
+    return sparse_step(lambda v: TIERS["ell"].product(ops, v), x,
                        eng._dang.to(x.dtype), eng.d, eng.n)
 
 

@@ -424,9 +424,10 @@ def test_launcher_runs_on_cpu(capsys):
 def test_launcher_fails_when_ell_disagrees(monkeypatch):
     """As in the JAX launcher, a wrong ell tier fails the run."""
     from repro_torch.launch import pagerank_run
-    matvec = tengine._matvec
-    monkeypatch.setattr(tengine, "_matvec",
-                        lambda b, ops, x, *a: 1.1 * matvec(b, ops, x, *a))
+    product = tengine.EllTier.product
+    monkeypatch.setattr(tengine.EllTier, "product",
+                        lambda self, ops, x, *a: 1.1 * product(self, ops, x,
+                                                               *a))
     with pytest.raises(AssertionError):
         pagerank_run.run(["--nodes", "150", "--iters", "10",
                           "--device", "cpu"])

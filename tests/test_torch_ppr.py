@@ -222,11 +222,12 @@ def test_fused_ppr_goes_through_the_streaming_kernel(net, monkeypatch):
 
 
 def test_fused_ppr_needs_square_padding():
-    Hp = torch.zeros((256, 512))
+    lay = {"operands": (torch.zeros((256, 512)), torch.zeros((1, 512))),
+           "dang": torch.zeros(200)}
+    e = TEngine.from_layout("fused_dense", lay, 200, device="cpu",
+                            metrics=treg.NullRegistry())
     with pytest.raises(ValueError, match="square"):
-        tengine._run_ppr_fused(Hp, torch.zeros((1, 256)),
-                               torch.zeros((1, 512)), None, n=200,
-                               n_iters=1, d=0.85)
+        e.ppr([[1]], n_iters=1)
 
 
 def test_ppr_span_counter_and_bookkeeping_match_jax(net):

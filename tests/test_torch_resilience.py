@@ -40,7 +40,6 @@ from repro_torch.graph import validate as tval
 from repro_torch.kernels._build import KernelBuildError, KernelLaunchError
 from repro_torch.obs import registry as treg
 from repro_torch.pagerank import DynamicPageRankEngine, PageRankEngine
-from repro_torch.pagerank import dynamic as tdyn
 from repro_torch.pagerank import engine as tengine
 from repro_torch.pagerank import resilience as tres
 from repro_torch.serve import PageRankQueryEngine, ServeResilience
@@ -750,8 +749,7 @@ def test_card_faults_propagate(net, monkeypatch, fault, entry):
     def boom(*a, **k):
         raise CARD_FAULTS[fault]()
     for mod, name in ((tengine, "pagerank_step_fused"),
-                      (tengine, "streaming_matvec"),
-                      (tdyn, "streaming_matvec")):
+                      (tengine, "streaming_matvec")):
         monkeypatch.setattr(mod, name, boom)
     if fault != "injected":
         exc = CARD_FAULTS[fault]()

@@ -169,20 +169,30 @@ def test_landmark_answer_matches_jax(net, seed_sets, backend, precision):
 
 def test_landmark_answer_pads_queries_to_a_power_of_two(net, monkeypatch):
     """Q = 3 runs the push on 4 columns, the pad column all zero."""
-    from repro_torch.pagerank import landmarks as tlm
+    from repro_torch.pagerank import engine as tengine
     _, t = _pair(net, "fused_dense", "int8")
     tl = LandmarkIndex(t, n_hubs=8, tol=1e-7, n_iters=40)
-    shapes = []
-    real = tlm._hub_push_fused
+    tl.build()
+    tier = type(t._tier)
+    shapes, iterates = [], []
+    enter, real = tier.enter, tengine.streaming_matvec
 
-    def spy(Hp, dangp, scales, Vp, X0p, tol, **kw):
-        shapes.append(tuple(Vp.shape))
-        assert not Vp[3].any() and not X0p[3].any()
-        return real(Hp, dangp, scales, Vp, X0p, tol, **kw)
+    def spy(self, e, A):
+        At = enter(self, e, A)
+        shapes.append(tuple(At.shape))
+        assert not At[3].any()
+        return At
 
-    monkeypatch.setattr(tlm, "_hub_push_fused", spy)
+    def kernel(W, X):
+        iterates.append(X)
+        return real(W, X)
+
+    monkeypatch.setattr(tier, "enter", spy)
+    monkeypatch.setattr(tengine, "streaming_matvec", kernel)
     X, _ = tl.answer([[1], [2, 3], [4, 5, 6]])
-    assert shapes == [(4, t.operands[0].shape[1])] and X.shape == (N, 3)
+    # V and X0 enter the padded layout, and the pad column stays zero
+    assert shapes == [(4, t.operands[0].shape[1])] * 2 and X.shape == (N, 3)
+    assert iterates and not any(bool(X[3].any()) for X in iterates)
 
 
 def test_landmark_exhausted_push_budget_falls_back_to_exact(net):
