@@ -29,8 +29,10 @@ divides; pad entries never feed back into real ranks and results are
 sliced back to N.  Duplicate directed edges are collapsed up front, by one
 sort on the engine's device, so every tier sees the same graph; self-loops
 stay.  The ``ell`` tiers build their transition CSR from that edge set on
-the same device.  The engine runs on the card unless ``device`` (or the
-mesh) asks for the CPU.
+the same device; on a graph of more than :data:`HOT_COLUMNS` vertices the
+``ell`` layout numbers its vertices by out-degree (``vertex_order``), and
+every answer leaves the engine in the caller's ids.  The engine runs on the
+card unless ``device`` (or the mesh) asks for the CPU.
 """
 from __future__ import annotations
 
@@ -84,6 +86,13 @@ SHARDED_BACKENDS = ("dense_sharded", "ell_sharded")
 DENSE_DENSITY = 0.25    # at/above: blocked-dense sweeps beat index chasing
 CUDA_DENSE_DENSITY = 0.2
 CUDA_DENSE_MAX_N = 5000
+
+# the ell layout's vertex order: past this many vertices x (float32)
+# outgrows the 128 kB of an SM's L1 that the split-ELL kernel's gathers can
+# keep beside its streams, and the layout numbers the vertices by
+# out-degree, how often each column of x is gathered, so the hot columns
+# share the first lines of x; at or below it x fits whatever the order
+HOT_COLUMNS = 32_768
 
 
 def select_backend(n: int, density: float,
@@ -273,13 +282,14 @@ class Tier:
     operator, each in the tier's own layout.
 
     A tier holds no state: there is one instance per kind, and every
-    method reads the engine ``e``'s ``_operands``, ``_dang``, ``_scales``
-    and ``_ell_meta`` when it is called, so a patch or a rollback of those
-    attributes needs no word to the tier.  This base is an eager tier of
-    one device: its step is ``sparse_step`` over :meth:`product`, its state
-    the rank vector, its batched layout the (N, Q) block.  A kind supplies
-    ``pack(e, src, dst, csr, dang)``, the layout before the upload, and
-    ``upload(e, host, dang)``, which places it and the dangling mask."""
+    method reads the engine ``e``'s ``_operands``, ``_dang``, ``_scales``,
+    ``_ell_meta`` and ``_order`` / ``_pos`` when it is called, so a patch
+    or a rollback of those attributes needs no word to the tier.  This
+    base is an eager tier of one device: its step is ``sparse_step`` over
+    :meth:`product`, its state the rank vector, its batched layout the
+    (N, Q) block.  A kind supplies ``pack(e, src, dst, csr, dang)``, the
+    layout before the upload, and ``upload(e, host, dang)``, which places
+    it and the dangling mask."""
     sharded = False         # runs on the engine's mesh (distributed.py)
     fused = False           # steps through the fused kernel (K1)
     device_csr = False      # builds its transition CSR in prepare.csr
@@ -294,10 +304,11 @@ class Tier:
         is given), ``prepare.pack`` and ``prepare.upload``."""
         csr = None
         if self.device_csr:
-            with e._phase("prepare.csr"):
+            with e._phase("prepare.csr") as fields:
                 if edges is None:
                     edges = _device_edges(_device_ids(src, e.device),
                                           _device_ids(dst, e.device), e.n)
+                edges = self.relabel(e, edges, fields)
                 csr = _transition_csr(edges, e.n)
         with e._phase("prepare.pack"):
             dang = self.dangling(e, src, edges)
@@ -305,6 +316,11 @@ class Tier:
         del edges, csr
         with e._phase("prepare.upload"):
             self.upload(e, host, dang)
+
+    def relabel(self, e, edges: DeviceEdges, fields) -> DeviceEdges:
+        """The device edges in the layout's vertex order; the caller's ids
+        unless the tier numbers its vertices anew."""
+        return edges
 
     def dangling(self, e, src: np.ndarray, edges):
         """The dangling mask (float32, 1 where a vertex has no out-edge)."""
@@ -357,9 +373,13 @@ class Tier:
         """The global step on the tier's state."""
         return self.eager_step(e, metrics)
 
-    def ranks(self, e, state) -> torch.Tensor:
-        """The rank vector (n,) of a state."""
+    def vector(self, e, state) -> torch.Tensor:
+        """The rank vector (n,) of a state, in the layout's vertex order."""
         return state
+
+    def ranks(self, e, state) -> torch.Tensor:
+        """The rank vector (n,) of a state, in the caller's ids."""
+        return self.vector(e, state)
 
     def run(self, e, n_iters: int) -> torch.Tensor:
         step, state = self.step(e, e.metrics), self.start(e, None)
@@ -373,8 +393,8 @@ class Tier:
 
         def body(state):
             new = step(state)
-            return new, torch.sum(torch.abs(self.ranks(e, new)
-                                            - self.ranks(e, state)))
+            return new, torch.sum(torch.abs(self.vector(e, new)
+                                            - self.vector(e, state)))
 
         out = instrumented_tol_loop(body, self.start(e, x0), tol=tol,
                                     max_iters=max_iters, watchdog=watchdog,
@@ -468,8 +488,38 @@ class EllTier(Tier):
     step in two launches of the split-ELL kernel
     (:func:`repro_torch.kernels.ell_step.ell_step`, its metadata the
     engine's ``_ell_meta``) on the carry ``(x, sum(x * dang))``; the CPU
-    and the batched products take the eager gathers."""
+    and the batched products take the eager gathers.
+
+    On a graph of more than :data:`HOT_COLUMNS` vertices the layout's rows
+    and columns are the vertices by out-degree (:meth:`relabel`): the
+    engine's ``_order`` maps a layout position to the caller's id, ``_pos``
+    back.  The states, the push's vector and the batched blocks live in
+    that order; :meth:`ranks`, :meth:`leave` and the push's ranks return
+    the caller's ids."""
     device_csr = True
+
+    def relabel(self, e, edges, fields):
+        """Past :data:`HOT_COLUMNS` vertices, number them by out-degree,
+        descending, ties by id (one stable sort of n keys); the edges and
+        both degree vectors follow.  The span's fields (a recording
+        registry's) get ``order``, ``"degree"`` or ``"given"``, and
+        ``hot_share``, the share of the entries whose column lies among
+        the first :data:`HOT_COLUMNS` of the layout."""
+        e._order = e._pos = None
+        if e.n > HOT_COLUMNS:
+            order = torch.sort(-edges.outdeg, stable=True).indices
+            pos = torch.empty_like(order)
+            pos[order] = torch.arange(e.n, device=order.device)
+            e._order, e._pos = order, pos
+            pos = pos.to(edges.src.dtype)
+            edges = DeviceEdges(torch.index_select(pos, 0, edges.src),
+                                torch.index_select(pos, 0, edges.dst),
+                                edges.outdeg[order], edges.indeg[order])
+        if fields is not None:              # None from a NullRegistry
+            fields["order"] = "given" if e._order is None else "degree"
+            hot = int(torch.count_nonzero(edges.src < HOT_COLUMNS))
+            fields["hot_share"] = hot / max(1, edges.src.numel())
+        return edges
 
     def dangling(self, e, src, edges):
         return (edges.outdeg == 0).float()
@@ -510,8 +560,14 @@ class EllTier(Tier):
                 0, ov_r, (ov_v if vec else ov_v[:, None]) * x[ov_c])
         return self.scale_rows(y + tail, scales)
 
+    @staticmethod
+    def place(e, X: torch.Tensor) -> torch.Tensor:
+        """A vector or (n, Q) block in the caller's ids, in the layout's
+        order."""
+        return X if e._order is None else X[e._order]
+
     def start(self, e, x0):
-        x = super().start(e, x0)
+        x = super().start(e, None if x0 is None else self.place(e, x0))
         return (x, torch.sum(x * e._dang)) if self._kernel(e) else x
 
     def step(self, e, metrics):
@@ -528,8 +584,21 @@ class EllTier(Tier):
                                 annotate=ranges)
         return step
 
-    def ranks(self, e, state):
+    def vector(self, e, state):
         return state[0] if isinstance(state, tuple) else state
+
+    def ranks(self, e, state):
+        return self.leave(e, self.vector(e, state))
+
+    def push_operator(self, e, x0):
+        return (self.eager_step(e, _QUIET), self.place(e, x0),
+                lambda x: self.leave(e, x))
+
+    def enter(self, e, A):
+        return self.place(e, super().enter(e, A))
+
+    def leave(self, e, X):
+        return X if e._pos is None else X[e._pos]
 
     @staticmethod
     def _kernel(e) -> bool:
@@ -624,7 +693,7 @@ class FusedDenseTier(Tier):
             return yp, d * leak / n + (1.0 - d) / n
         return step
 
-    def ranks(self, e, state):
+    def vector(self, e, state):
         return state[0][0, :e.n]
 
     def push_operator(self, e, x0):
@@ -956,8 +1025,11 @@ class PageRankEngine:
         self._n_pad = self.n
         self._ppr_operands: tuple | None = None
         self._ppr_scales = None
-        # the split-ELL kernel's metadata of an ell layout (ell_meta)
+        # the split-ELL kernel's metadata of an ell layout (ell_meta), and
+        # its vertex order (layout position -> caller's id) and inverse
         self._ell_meta = None
+        self._order: torch.Tensor | None = None
+        self._pos: torch.Tensor | None = None
         if self._tier.sharded:
             self.mesh = (mesh if mesh is not None
                          else default_mesh(backend, device))
@@ -1024,9 +1096,10 @@ class PageRankEngine:
         """The span ``name`` around one phase of the layout build.  With a
         recording registry the phase ends once the engine's cards have
         done its work, so none of its device time falls into a later
-        phase; a :class:`NullRegistry` adds no wait."""
-        with self.metrics.span(name):
-            yield
+        phase; a :class:`NullRegistry` adds no wait.  Yields the span's
+        fields (``None`` from a :class:`NullRegistry`)."""
+        with self.metrics.span(name) as fields:
+            yield fields
             if not isinstance(self.metrics, NullRegistry):
                 self._synchronize()
 
@@ -1049,8 +1122,18 @@ class PageRankEngine:
     @property
     def operands(self) -> tuple:
         """The prepared (already padded; sharded on the mesh tiers) layout
-        tensors."""
+        tensors.  An ``ell`` layout's rows and columns, and its dangling
+        mask, are in :attr:`vertex_order`."""
         return self._operands
+
+    @property
+    def vertex_order(self) -> torch.Tensor | None:
+        """The layout's vertex order: ``None`` where it keeps the caller's
+        ids, else the int64 ``order`` on the engine's device whose entry
+        ``i`` is the caller's id of layout position ``i``.  Only an ``ell``
+        layout built here over more than :data:`HOT_COLUMNS` vertices has
+        one: the vertices by out-degree, descending, ties by id."""
+        return self._order
 
     def lower_run(self) -> dict:
         """The per-iteration schedule of ``run`` on the sharded tiers, the

@@ -123,6 +123,8 @@ class LandmarkIndex:
             if isinstance(dang, ShardedTensor):
                 dang = dang.full()
             dang = dang.cpu().numpy().astype(np.float64)[:e.n]
+            if e._pos is not None:      # the layout's order -> the caller's
+                dang = dang[e._pos.cpu().numpy()]
             c = (1.0 - e.d) + e.d * (dang @ X)                    # (H,)
             self._Y = (X / c[None, :]).astype(np.float32)
             self._hub_pos = np.full(e.n, -1, np.int64)

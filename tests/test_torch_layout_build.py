@@ -18,6 +18,7 @@ from repro_torch.graph.sparse import ELLMatrix
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.obs.registry import NullRegistry
 from repro_torch.pagerank import PageRankEngine
+from repro_torch.pagerank.engine import HOT_COLUMNS
 from repro_torch.pagerank.precision import (PRECISIONS, STORAGE_DTYPES,
                                             layout_nbytes, quantize_int8,
                                             rowmax_scales)
@@ -82,8 +83,24 @@ def _quantize_split_ell_host(ops, precision):
             t(ov_c), t(quantize_int8(ov_v, scales[ov_r])), t(scales))
 
 
-def _ell_host(src, dst, n, ell_k, precision):
+def _degree_order(src, dst, n):
+    """The ``ell`` layout's vertex order as numpy computes it: ``None`` up
+    to ``HOT_COLUMNS`` vertices, else the vertices by out-degree,
+    descending, ties by id."""
+    if n <= HOT_COLUMNS:
+        return None
+    s, _ = dedupe_directed(src, dst, n, drop_self_loops=False)
+    return np.argsort(-np.bincount(s, minlength=n), kind="stable")
+
+
+def _ell_host(src, dst, n, ell_k, precision, order=None):
+    """The split ELL the host built, of the edges relabelled by ``order``
+    (layout position -> caller's id) where one is given."""
     s, d = dedupe_directed(src, dst, n, drop_self_loops=False)
+    if order is not None:
+        pos = np.empty(n, np.int64)
+        pos[order] = np.arange(n)
+        s, d = pos[s], pos[d]
     csr = tr.build_transition_csr(s, d, n, device="cpu")
     ops, k0, ov_nnz = _split_ell_host(csr, n, ell_k)
     layout = f"ell(k0={k0})+overflow(nnz={ov_nnz})"
@@ -149,7 +166,11 @@ def test_the_ell_layout_equals_the_host_build(case, ell_k, precision):
     src, dst, n = CASES[case]
     eng = _engine(src, dst, n, backend="ell", ell_k=ell_k,
                   precision=precision)
-    ops, dang, layout = _ell_host(src, dst, n, ell_k, precision)
+    order = _degree_order(src, dst, n)
+    assert (eng.vertex_order is None) == (order is None)
+    if order is not None:
+        assert np.array_equal(eng.vertex_order.numpy(), order)
+    ops, dang, layout = _ell_host(src, dst, n, ell_k, precision, order)
     _assert_bits(eng.operands, ops)
     _assert_bits((eng._dang,), (dang,))
     assert eng.layout == layout
