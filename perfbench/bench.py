@@ -19,6 +19,12 @@ harness finds
 Adding a cell, a configuration, a mix or a metric therefore takes new
 files and new ``BENCHMARK.json`` entries, never an edit; a cell held back
 in ``perfbench/parked.json`` comes in by moving its entries.
+
+A cell's ``chips`` sets its devices (:func:`cell_devices`): its driver
+builds the engine on a mesh over them, set-up and the traced stretches end
+when all of them have finished, ``memory_peak_bytes`` is the fullest
+card's, and ``busy_s`` the mean over the cards (:mod:`perfbench.devtrace`).
+A cell of one chip runs on ``device`` alone, as it always has.
 """
 from __future__ import annotations
 
@@ -93,6 +99,18 @@ def forbidden_modules() -> list[str]:
     return sorted(loaded.intersection(FORBIDDEN))
 
 
+def cell_devices(device, chips: int) -> list:
+    """The devices of a cell of ``chips`` chips: ``device`` alone for one;
+    else cards 0 to ``chips`` - 1 of a CUDA ``device``, or ``chips``
+    positions on the CPU (the program's mesh allows a device at several
+    positions)."""
+    if chips == 1:
+        return [device]
+    if torch.device(device).type == "cuda":
+        return [f"cuda:{i}" for i in range(chips)]
+    return [device] * chips
+
+
 def run_cell(bench: Benchmark, workload: str, seed: int, seconds: float,
              trace: bool, *, device="cuda", t_start: float,
              config_overrides: dict | None = None,
@@ -109,25 +127,27 @@ def run_cell(bench: Benchmark, workload: str, seed: int, seconds: float,
     limits_path = PB / "limits" / f"{workload}.json"
     limits = load_json(limits_path) if limits_path.is_file() else {}
     on_card = torch.device(device).type == "cuda"
+    chips = int(cell["chips"])
+    devices = cell_devices(device, chips)
     registry = (MetricsRegistry(profiler_annotations=True) if trace
                 else NullRegistry())
 
-    graph = graphs.make(cfg, seed, device)
+    graph = graphs.make(cfg, seed, devices[0])
     driver = drivers.load(traffic["driver"])(cfg, traffic, graph, seed,
-                                             seconds, device, registry)
-    if on_card:
-        torch.cuda.synchronize()
+                                             seconds, devices, registry)
+    drivers.sync_all(devices)
     setup_s = time.perf_counter() - t_start
     rec = driver.timed()
-    rec.update(setup_s=setup_s, device_kind=(
+    rec.update(setup_s=setup_s, chips=chips, device_kind=(
         torch.cuda.get_device_name(0) if on_card else "cpu"),
         work_bytes_per_iter=work.iteration_bytes(graph.n, graph.n_directed))
     if trace and on_card:
         seconds_traced = float(traffic["trace_seconds"])
         info, prof = devtrace.device_stretch(
-            torch, lambda: driver.stretch(seconds_traced, "trace"))
+            torch, lambda: driver.stretch(seconds_traced, "trace"), devices)
         host, hprof = devtrace.host_stretch(
-            torch, lambda: driver.stretch(seconds_traced, "trace_host"))
+            torch, lambda: driver.stretch(seconds_traced, "trace_host"),
+            devices)
         rec["profile"] = {**prof, **info, "idle_gaps": hprof["idle_gaps"]}
         # calls (solves, flushes, refreshes) per second: the profilers'
         # cost to the host shows as a lower rate in a closed loop
@@ -135,7 +155,8 @@ def run_cell(bench: Benchmark, workload: str, seed: int, seconds: float,
             "window": rec["calls"] / rec["window_s"],
             "device_profile": info["calls"] / prof["window_s"],
             "host_profile": host["calls"] / hprof["window_s"]}
-    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    peaks = [torch.cuda.max_memory_allocated(d) if on_card else 0
+             for d in devices]
     out = driver.outputs()
     if on_card:
         torch.cuda.empty_cache()
@@ -148,8 +169,10 @@ def run_cell(bench: Benchmark, workload: str, seed: int, seconds: float,
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     dev = {"platform": "gpu" if on_card else "cpu",
-           "kind": rec["device_kind"], "count": int(cell["chips"]),
-           "memory_peak_bytes": int(peak)}
+           "kind": rec["device_kind"], "count": chips,
+           "memory_peak_bytes": int(max(peaks))}
+    if chips > 1:
+        dev["memory_peak_bytes_per_card"] = [int(p) for p in peaks]
     result = {"correct": checks.is_correct(checks_done, rec),
               "attempted": int(rec["attempted"]),
               "failed": int(rec["failed"]), "metrics": metrics,
@@ -157,6 +180,8 @@ def run_cell(bench: Benchmark, workload: str, seed: int, seconds: float,
     if "profile" in rec:
         prof = rec["profile"]
         dev.update(busy_s=prof["busy_s"], window_s=prof["window_s"])
+        if chips > 1:
+            dev["busy_s_per_card"] = prof["busy_s_per_card"]
         result["breakdown"] = {"device_ops": prof["device_ops"],
                                "idle_gaps": prof["idle_gaps"]}
         result["calls_per_s"] = rec["calls_per_s"]

@@ -17,9 +17,15 @@ down, in the program's place (:mod:`perfbench.control`).
 A driver keeps in ``rec`` what the metric readers read, among them
 ``attempted``, the requests of the window, and ``calls``, its solves,
 flushes or refreshes.
+
+A driver is handed the cell's devices (``devices``, one per chip; the
+first is its ``device``).  Over several, the engine is built on a mesh of
+them (:func:`cell_mesh`); with one it gets no mesh.  Every wait is on all
+of them (:func:`sync_all`).
 """
 from __future__ import annotations
 
+import math
 import sys
 import time
 import traceback
@@ -34,9 +40,26 @@ def load(name: str):
     return find("drivers", name).Driver
 
 
-def sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+def sync_all(devices) -> None:
+    """Wait for every CUDA card among ``devices``, each once."""
+    for dev in dict.fromkeys(torch.device(d) for d in devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def cell_mesh(backend: str, devices):
+    """The sharded tiers' mesh over the cell's own devices, never over
+    every visible card: 1-D (``shard``) for ``ell_sharded``, else the
+    near-square 2-D (``row``, ``col``) mesh of the program's
+    ``default_mesh``."""
+    from repro_torch.launch.mesh import make_mesh
+    n = len(devices)
+    if backend == "ell_sharded":
+        return make_mesh((n,), ("shard",), devices)
+    r = math.isqrt(n)
+    while n % r:
+        r -= 1
+    return make_mesh((r, n // r), ("row", "col"), devices)
 
 
 class Reservoir:
@@ -67,10 +90,11 @@ class Reservoir:
 
 class Driver:
     def __init__(self, cfg: dict, traffic: dict, graph, seed: int,
-                 seconds: float, device, registry):
+                 seconds: float, devices, registry):
         self.cfg, self.traffic, self.graph = cfg, traffic, graph
         self.seed, self.seconds = seed, float(seconds)
-        self.device, self.registry = device, registry
+        self.devices, self.registry = list(devices), registry
+        self.device = self.devices[0]
         self.d = float(cfg["d"])
         self.top_k = int(traffic["top_k"])
         self.rec: dict = {"spans": {}, "graph": {
@@ -78,12 +102,14 @@ class Driver:
             "n_undirected": graph.n_undirected}}
 
     def _engine(self, cls, **kw):
+        if len(self.devices) > 1:
+            kw["mesh"] = cell_mesh(self.cfg["backend"], self.devices)
         t0 = time.perf_counter()
         eng = cls(self.graph.src, self.graph.dst, self.graph.n, d=self.d,
                   backend=self.cfg["backend"],
                   precision=self.cfg["precision"], device=self.device,
                   metrics=self.registry, **kw)
-        sync(self.device)
+        sync_all(self.devices)
         self.rec["spans"]["prepare"] = [time.perf_counter() - t0]
         return eng
 
@@ -129,7 +155,7 @@ class Served(Driver):
                     for _ in range(q)]
             self.landmarks.answer(sets)
             eng.ppr(sets, n_iters=int(self.traffic["n_iters"])).cpu()
-        sync(self.device)
+        sync_all(self.devices)
 
     def _queries(self, seconds: float, stream: str) -> tuple:
         return loadgen.plan(self.graph, self.traffic, self.seed, seconds,

@@ -9,7 +9,7 @@ import time
 import numpy as np
 
 from perfbench import checks, loadgen
-from perfbench.drivers import Reservoir, Served, sync
+from perfbench.drivers import Reservoir, Served, sync_all
 from perfbench.graphs.stream import EdgeStream
 from perfbench.reference import pagerank as rpr
 
@@ -54,7 +54,7 @@ class Driver(Served):
         for ins, dele in ((pair, none), (none, pair)):
             self.qe.push_update(self._delta(ins, dele))
             self.qe.refresh()
-        sync(self.device)
+        sync_all(self.devices)
 
     def _loop(self, due: np.ndarray, ticks: list, sets: list,
               record: bool) -> dict:
@@ -83,7 +83,7 @@ class Driver(Served):
                     qe.push_update(self._delta(*ticks[i]))
                 r0 = time.perf_counter()
                 infos = qe.refresh()
-                sync(self.device)
+                sync_all(self.devices)
                 refresh_s.append(time.perf_counter() - r0)
                 sweeps.extend(info.iters for info in infos)
                 for i in batch:

@@ -6,7 +6,7 @@ import time
 
 from perfbench import checks, loadgen
 from perfbench.drivers import Driver as Base
-from perfbench.drivers import Reservoir, sync
+from perfbench.drivers import Reservoir, sync_all
 
 
 class Driver(Base):
@@ -18,7 +18,7 @@ class Driver(Base):
         self.n_iters = int(self.cfg["n_iters"])
         self.eng = self._engine(PageRankEngine)
         self._solve()
-        sync(self.device)
+        sync_all(self.devices)
         self.kept = Reservoir(int(self.traffic["compare_solves"]),
                               loadgen.rng_for(self.seed, "compare"))
 

@@ -6,9 +6,10 @@
 ``refresh``, in seconds); the program's registry ``counters`` over the
 window; ``sweeps`` (``UpdateInfo.iters`` of each refresh); ``graph``
 (``n_connected``, ``n_undirected``);
-``work_bytes_per_iter``; ``device_kind``; and, in a traced run,
-``profile`` (:func:`perfbench.devtrace.device_stretch`'s reduction of
-the device-only stretch, with the driver's ``iterations`` issued in it).
+``work_bytes_per_iter``; ``device_kind``; ``chips``, the cell's cards;
+and, in a traced run, ``profile`` (:func:`perfbench.devtrace.
+device_stretch`'s reduction of the device-only stretch, its ``busy_s``
+the mean card's, with the driver's ``iterations`` issued in it).
 """
 import numpy as np
 

@@ -6,7 +6,8 @@ The stretch's own busy share would read the profiler's cost to the host
 as idle time: a closed loop completes fewer solves a second under it.
 The device time a request takes does not depend on how fast the host
 issues it, so it is taken from the trace and scaled by the rate of the
-untraced window."""
+untraced window.  On a cell of several cards the device time is the
+mean card's, so this is the mean card's idle share."""
 
 
 def read(rec):

@@ -1,6 +1,7 @@
-"""Seconds of the host transition CSR (``build_transition_csr``) of the
-``ell`` tiers: the program's span ``prepare.csr`` inside ``prepare``, the
-engine's constructor."""
+"""Seconds of the transition CSR of the ``ell`` tiers, built on the
+engine's device from its edge set (one sort of the keys ``dst * n + src``;
+on ``ell`` first the vertices numbered by out-degree): the program's span
+``prepare.csr`` inside ``prepare``, the engine's constructor."""
 from perfbench.spans import phase_s
 
 

@@ -1,6 +1,7 @@
-"""Seconds of the engine's host edge keys and degree counts
-(``edge_keys`` and two ``bincount``s): the program's span
-``prepare.keys`` inside ``prepare``, the engine's constructor."""
+"""Seconds of the engine's degree counts on its device and the degrees and
+keys copied to the host (``_edge_set``, after the dedupe's one sort): the
+program's span ``prepare.keys`` inside ``prepare``, the engine's
+constructor."""
 from perfbench.spans import phase_s
 
 

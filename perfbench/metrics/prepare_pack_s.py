@@ -1,7 +1,7 @@
-"""Seconds of the rest of the layout's host build (on ``ell``: the
-degree percentile, ``row_positions``, the (n, k0) scatters and the
-overflow): the program's span ``prepare.pack`` inside ``prepare``, the
-engine's constructor."""
+"""Seconds of the rest of the layout's build (on ``ell``, on the device:
+the budget ``k0`` from the row counts read on the host, the row positions,
+the (n, k0) scatters, the overflow and the storage type): the program's
+span ``prepare.pack`` inside ``prepare``, the engine's constructor."""
 from perfbench.spans import phase_s
 
 

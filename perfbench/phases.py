@@ -19,7 +19,8 @@ host's stretch also by the range around the runtime call that launched
 it (a profile of the device alone carries no copies of the ranges on
 torch 2.11).
 
-Exit codes: 0 with the object; 2 for an unknown cell; 3 without a card.
+Exit codes: 0 with the object; 2 for an unknown cell; 3 without the
+cell's cards.
 """
 from __future__ import annotations
 
@@ -33,24 +34,26 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 
 
-def split(torch, body, host: bool) -> tuple[object, dict]:
+def split(torch, body, host: bool, devices) -> tuple[object, dict]:
     """Run ``body()`` under the profiler (the device alone, or with
-    ``host`` the host as well); returns its value and the stretch's busy
-    seconds and device seconds by innermost program range: by the
-    device-side copies of the ranges (``by_span_device``; a profile of the
-    device alone may carry none) and, with ``host``, by the range around
-    the runtime call that launched each operation (``by_span_launch``; a
-    device operation shares its launch's id)."""
+    ``host`` the host as well), from and to a point at which every card of
+    the cell's ``devices`` is synchronized; returns its value and the
+    stretch's busy seconds and device seconds by innermost program range:
+    by the device-side copies of the ranges (``by_span_device``; a profile
+    of the device alone may carry none) and, with ``host``, by the range
+    around the runtime call that launched each operation
+    (``by_span_launch``; a device operation shares its launch's id)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from perfbench import devtrace, spans
+    from perfbench.drivers import sync_all
     activities = [ProfilerActivity.CUDA] + (
         [ProfilerActivity.CPU] if host else [])
-    torch.cuda.synchronize()
+    sync_all(devices)
     with profile(activities=activities) as prof:
         value = body()
-        torch.cuda.synchronize()
+        sync_all(devices)
     events = prof.events()
 
     def ranges(side):
@@ -99,8 +102,10 @@ def main(argv=None) -> int:
     except KeyError as err:
         print(f"perfbench: {err}", file=sys.stderr)
         return 2
-    if not torch.cuda.is_available():
-        print("perfbench: no CUDA card", file=sys.stderr)
+    if (not torch.cuda.is_available()
+            or torch.cuda.device_count() < int(cell["chips"])):
+        print(f"perfbench: {args.workload} needs {cell['chips']} CUDA "
+              "card(s)", file=sys.stderr)
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = bench.config(cell["config"])
@@ -108,9 +113,10 @@ def main(argv=None) -> int:
     seconds = (float(traffic["trace_seconds"]) if args.seconds is None
                else args.seconds)
     registry = MetricsRegistry(profiler_annotations=True)
-    graph = graphs.make(cfg, args.seed, "cuda")
+    devices = B.cell_devices("cuda", int(cell["chips"]))
+    graph = graphs.make(cfg, args.seed, devices[0])
     driver = drivers.load(traffic["driver"])(cfg, traffic, graph, args.seed,
-                                             seconds, "cuda", registry)
+                                             seconds, devices, registry)
     out = {"workload": args.workload, "seed": args.seed,
            "device": torch.cuda.get_device_name(0),
            "prepare_s": driver.rec["spans"]["prepare"][0],
@@ -118,7 +124,7 @@ def main(argv=None) -> int:
     for name, host in (("device_stretch", False), ("host_stretch", True)):
         t0 = time.perf_counter()
         info, got = split(torch, lambda: driver.stretch(seconds, "trace"),
-                          host)
+                          host, devices)
         iters = info["iterations"]
         got.update(window_s=time.perf_counter() - t0, iterations=iters)
         for key in [k for k in got if k.startswith("by_span")]:

@@ -43,9 +43,28 @@ def test_keys_and_names():
     assert all(0 < len(w) <= 200 and "\n" not in w for w in whys)
 
 
+def chips_follow_the_rule(workloads) -> bool:
+    """Every cell takes 1 or 4 chips, and at most a quarter of the cells,
+    rounded down, take 4; one always may."""
+    chips = [w["chips"] for w in workloads]
+    return (all(c in (1, 4) for c in chips)
+            and chips.count(4) <= max(1, len(chips) // 4))
+
+
+@pytest.mark.parametrize("chips,ok", [
+    ([4], True), ([1, 4], True), ([1, 1, 1, 4], True),
+    ([1, 1, 4, 4], False), ([4, 4], False), ([1, 2], False),
+    ([1, 1, 1, 1, 1, 1, 1, 4, 4], True), ([1, 1, 1, 1, 1, 1, 4, 4, 4], False),
+])
+def test_the_chips_rule_on_a_local_spec(chips, ok):
+    cells = [{"name": f"c{i}", "chips": c} for i, c in enumerate(chips)]
+    assert chips_follow_the_rule(cells) is ok
+
+
 def test_every_cell_is_complete():
+    assert chips_follow_the_rule(ALL["workloads"])
     for w in ALL["workloads"]:
-        assert w["chips"] == 1
+        assert w["chips"] in (1, 4)
         e2e = reports(w["name"], "end_to_end")
         assert "setup_s" in e2e and len(e2e) >= 2
         assert reports(w["name"], "per_layer")
