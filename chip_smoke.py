@@ -174,6 +174,12 @@ result line):
    version, ``run(10)`` bit for bit with its launches, flushed / warm /
    eager-call times beside its byte bound, the plain version, the eager
    step it replaced and ``torch.sparse_csr @ x``);
+   the same kernel in its block form, on the ``ell_split_sharded`` tier's
+   four row blocks of the ``graph500_26`` configuration's graph at scale
+   25, all on this card (:func:`split_ell_block_phase`: every block
+   against the whole vector with the four leak parts, against its plain
+   version, written into a longer vector, with its launches; the tier's
+   ``run(10)`` against the float64 reference across four positions);
    the serve flush's p50 / p95 and the landmark build time;
    ``run(100)`` and ``run_tol`` on every tier, ``bsr`` included; and the
    two paths K3 serves at B >= 8, each with its exact K3 launch count:
@@ -974,6 +980,136 @@ def ell_step_phase(np, torch, dev, card, flush=None) -> dict:
     out["rows"] = rows
     out["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"ell_step_phase": out}))
+    return out
+
+
+SPLIT_SCALE = 25          # the largest graph500_26 graph one card builds
+
+
+def split_ell_block_phase(np, torch, dev, card, scale=SPLIT_SCALE) -> dict:
+    """The split-ELL kernel in the block form the ``graph500_26.solve_sharded``
+    cell runs: the configuration's graph (``perfbench/configs/
+    graph500_26.json``, seed 0) at ``scale`` (its blocks half the cell's at
+    25, the largest whose build one card holds), built by the
+    ``ell_split_sharded`` tier on a 2 x 2 mesh of four positions of this
+    card.  For every block: one step against the whole vector x (N
+    entries) and the four blocks' leak parts, against its plain version
+    (rtol 1e-5, atol 1e-7) and bit-identical on a second call; the same
+    step written into its rows of a longer vector and its slot of the
+    parts (``out=``), bit-equal, the rest of both untouched; 2 launches;
+    its time (warm, CUDA graph) beside its byte bound.  Then the tier's
+    ``run(10)`` with 4 x 2 launches a step, repeated bit for bit, against
+    the float64 reference across four positions of the card
+    (``perfbench/reference/pagerank_cards.py``) within the cell's
+    ``l1_gap``.  Alone, from the repository root: ``PYTHONPATH=src
+    python3 -c "import numpy as np, torch, chip_smoke;
+    chip_smoke.split_ell_block_phase(np, torch, torch.device('cuda'),
+    chip_smoke.nvidia_smi())"``."""
+    from perfbench.graphs import kronecker_chunked
+    from perfbench.reference import pagerank_cards
+    from repro_torch.kernels import ell_step as ell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs.registry import NullRegistry
+    from repro_torch.pagerank import PageRankEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = json.loads((ROOT / "perfbench" / "configs"
+                      / "graph500_26.json").read_text())
+    cfg["scale"] = scale
+    limits = json.loads((ROOT / "perfbench" / "limits"
+                         / "graph500_26.solve_sharded.json").read_text())
+    g = kronecker_chunked.make(cfg, 0, dev)
+    gen_s = time.perf_counter() - t0
+    mesh = make_mesh((2, 2), ("row", "col"), [dev] * 4)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
+    eng = PageRankEngine(g.src, g.dst, g.n, d=cfg["d"],
+                         backend="ell_split_sharded", mesh=mesh,
+                         metrics=NullRegistry())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    build_peak = torch.cuda.max_memory_allocated(dev)
+    rows, N = eng._rows, g.n
+    out = {"card": card, "scale": scale, "n": N, "gen_s": gen_s,
+           "build_s": build_s, "build_peak_bytes": build_peak,
+           "layout": eng.layout, "blocks": []}
+    print(f"  graph500_26 at scale {scale}, seed 0: n {N}, {eng.n_edges} "
+          f"directed entries; generated in {gen_s:.1f} s, built in "
+          f"{build_s:.1f} s on 4 positions of the card, peak "
+          f"{build_peak / 2**30:.1f} GiB; {eng.layout}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    x = torch.rand(N, generator=gen, device=dev) + 0.5
+    x /= x.sum()
+    parts = torch.stack([torch.sum(x[a:b] * dang) for a, b, dang
+                         in zip(rows[:-1], rows[1:], eng._dang)])
+    for p, (a, b) in enumerate(zip(rows[:-1], rows[1:])):
+        ops, meta, dang = eng._operands[p], eng._ell_meta[p], eng._dang[p]
+
+        def kernel(ops=ops, meta=meta, dang=dang):
+            return ell.ell_step(ops, meta, dang, x, parts, d=eng.d)
+
+        before = ell.launches["f32"]
+        new, lk = kernel()
+        torch.cuda.synchronize()
+        launched = ell.launches["f32"] - before
+        check(launched == 2, f"block {p}: {launched} launches, want 2")
+        want, want_lk = ell.ell_step_ref(ops, meta, dang, x, parts, d=eng.d)
+        err = allclose(torch, new, want, rtol=1e-5, atol=1e-7,
+                       what=f"block {p} vs its plain version")
+        allclose(torch, lk, want_lk, rtol=1e-5, atol=1e-7,
+                 what=f"block {p} leak part vs its plain version")
+        again = kernel()
+        check(bool(torch.equal(again[0], new) and torch.equal(again[1], lk)),
+              f"block {p}: two calls are not bit-identical")
+        vec = torch.full((N,), -1.0, device=dev)
+        slots = torch.full((4,), -1.0, device=dev)
+        ell.ell_step(ops, meta, dang, x, parts, d=eng.d,
+                     out=(vec[a:b], slots[p:p + 1]))
+        check(bool(torch.equal(vec[a:b], new)
+                   and torch.equal(slots[p], lk)),
+              f"block {p}: the step written in place differs")
+        check(bool((vec[:a] == -1).all() and (vec[b:] == -1).all()
+                   and int((slots == -1).sum()) == 3),
+              f"block {p}: the step in place wrote outside its rows")
+        ms = cuda_ms(torch, kernel)
+        real = int(meta.counts.sum())
+        E = ops[4].numel()
+        nbytes = ((real + E) * 8 + meta.nbytes + 4 * N + 3 * 4 * (b - a))
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out["blocks"].append({
+            "rows": b - a, "k0": ops[0].shape[1], "ell_entries": real,
+            "overflow_entries": E, "max_abs_err": err, "launches": launched,
+            "ms": ms, "bound_ms": bound, "bytes": nbytes})
+        print(f"  block {p}: rows {b - a}, {real} ELL + {E} overflow "
+              f"entries against x of {N}; {ms * 1e3:.2f} us warm, bound "
+              f"{bound * 1e3:.2f} us ({bound / ms:.1%}); max|diff| "
+              f"{err:.3e}; 2 launches; in place bit-equal")
+        del new, lk, want, want_lk, again, vec
+    before = ell.launches["f32"]
+    t2 = time.perf_counter()
+    got = eng.run(10)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t2
+    launched = ell.launches["f32"] - before
+    check(launched == 80, f"run(10): {launched} launches, want 4 x 2 x 10")
+    check(bool(torch.equal(eng.run(10), got)),
+          "run(10): two solves are not bit-identical")
+    got = got.double().cpu()
+    del eng, x, parts
+    torch.cuda.empty_cache()
+    ref = pagerank_cards.global_ranks(g.src_t, g.dst_t, g.n, cfg["d"], 10,
+                                      [dev] * 4).cpu()
+    l1 = float(torch.sum(torch.abs(got - ref)))
+    check(l1 <= limits["l1_gap"],
+          f"run(10) vs the float64 reference: l1 {l1:.3e} above the cell's "
+          f"l1_gap {limits['l1_gap']}")
+    out.update(run10_s=run_s, run10_launches=launched, l1_vs_f64=l1,
+               phase_s=time.perf_counter() - t0)
+    print(f"  run(10) {run_s * 1e3:.1f} ms (first call), 80 launches, "
+          f"repeats bit-identical; l1 {l1:.3e} from the float64 reference")
+    print(json.dumps({"split_ell_block_phase": out}))
     return out
 
 
@@ -3968,6 +4104,9 @@ def main() -> int:
     print("the split-ELL step at the graph500_22.solve cell's shapes:")
     ell_stats = ell_step_phase(np, torch, dev, card, flush)
     del flush
+    print("the split-ELL step in its block form, graph500_26 at scale "
+          f"{SPLIT_SCALE} on four positions of the card:")
+    split_stats = split_ell_block_phase(np, torch, dev, card)
     rows.append(sharded_stats["k2_row"])
     rows.extend(ell_stats["rows"])
 
@@ -4073,6 +4212,7 @@ def main() -> int:
                       "dryrun": dryrun_stats,
                       "ell_step": {k: v for k, v in ell_stats.items()
                                    if k != "rows"},
+                      "split_ell_block": split_stats,
                       "k2_launches_by_step": {
                           step: {f"{p},B={b}": n for (p, b), n in c.items()}
                           for step, c in k2_steps.items()},

@@ -17,7 +17,14 @@ sets, a 16-hub landmark build with one answer, and one push update of the
 dynamic engine, each held to the one-device mesh (rtol 1e-5, atol 1e-7;
 iterations and sweeps within 1) and ``run(100)`` to the ``dense`` tier; and
 it times ``run(100)`` on both meshes (host clock, median of 5 with the
-smallest and largest).  It prints one line per check and, last, one JSON
+smallest and largest).  Then ``ell_split_sharded`` on a 2 x 2 mesh over
+four devices, beside four positions of the first, on the ``graph500_26``
+configuration's graph at ``--split-scale`` (default 22, seed 0): every
+block on its position's device, ``run(10)`` bit-equal to the one-device
+mesh (the exchange only copies) and within rtol 1e-5, atol 1e-7 of the
+``ell`` tier, ``run_tol(1e-7)`` within the same of the one-device mesh,
+and ``run(10)`` timed on both.  It prints one line per check and, last,
+one JSON
 object; it exits non-zero if a check fails, and without CUDA unless
 ``--devices`` names CPU positions (a rehearsal).
 """
@@ -42,6 +49,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--devices", default=None,
                         help="comma-separated devices (default: every card)")
+    parser.add_argument("--split-scale", type=int, default=22,
+                        help="scale of the ell_split_sharded check's graph")
     args = parser.parse_args()
     import numpy as np
     import torch
@@ -188,6 +197,9 @@ def main() -> int:
             "run_tol_iters": [c["res"].info.iters, o["res"].info.iters],
             "update_l1_vs_fresh": l1, "k2_launches_run": c["launched"],
             "run_wall_cards": c["wall"], "run_wall_one_device": o["wall"]}
+    if k == 4:
+        out["tiers"]["ell_split_sharded"] = split_check(
+            torch, devices, args.split_scale, check, wall)
     if all(torch.device(d).type == "cuda" for d in devices):
         import subprocess
         out["cards"] = subprocess.run(
@@ -197,6 +209,57 @@ def main() -> int:
     out["failed"] = failed
     print(json.dumps(out))
     return 1 if failed else 0
+
+
+def split_check(torch, devices, scale, check, wall) -> dict:
+    """``ell_split_sharded`` on four devices beside four positions of the
+    first, and beside the ``ell`` tier on the first."""
+    sys.path.insert(0, str(ROOT))
+    from perfbench.graphs import kronecker_chunked
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs.registry import NullRegistry
+    from repro_torch.pagerank import PageRankEngine
+
+    cfg = json.loads((ROOT / "perfbench" / "configs"
+                      / "graph500_26.json").read_text())
+    g = kronecker_chunked.make({**cfg, "scale": scale}, SEED, devices[0])
+    print(f"ell_split_sharded: 2 x 2 over {devices}, beside 4 positions of "
+          f"{devices[0]}; graph500_26 at scale {scale}: n {g.n}, "
+          f"{len(g.src)} directed entries")
+    got = {}
+    for name, devs in (("cards", devices), ("one", [devices[0]] * 4)):
+        eng = PageRankEngine(g.src, g.dst, g.n, d=cfg["d"],
+                             backend="ell_split_sharded",
+                             mesh=make_mesh((2, 2), ("row", "col"), devs),
+                             metrics=NullRegistry())
+        placed = all(t.device == torch.device(d)
+                     for ops, d in zip(eng.operands, devs) for t in ops)
+        got[name] = dict(placed=placed, pr=eng.run(10),
+                         res=eng.run_tol(1e-7, max_iters=1000),
+                         wall=wall(lambda e=eng: e.run(10)))
+        del eng
+    c, o = got["cards"], got["one"]
+    ell = PageRankEngine(g.src, g.dst, g.n, d=cfg["d"], backend="ell",
+                         device=devices[0], metrics=NullRegistry()).run(10)
+    check(c["placed"], "every block on its position's device")
+    check(bool(torch.equal(c["pr"].cpu(), o["pr"].cpu())),
+          "run(10) bit-equal to the one-device mesh")
+    err = float((c["pr"].cpu() - ell.cpu()).abs().max())
+    check(bool(torch.allclose(c["pr"].cpu(), ell.cpu(), **TOL)),
+          f"run(10) vs the ell tier: max|diff| {err:.3e}")
+    err_tol = float((c["res"].pr.cpu() - o["res"].pr.cpu()).abs().max())
+    check(bool(torch.allclose(c["res"].pr.cpu(), o["res"].pr.cpu(), **TOL)),
+          f"run_tol vs the one-device mesh: max|diff| {err_tol:.3e}")
+    print(f"  run(10) wall, median of 5 [min, max]: across devices "
+          f"{c['wall']['median_ms']:.3f} ms [{c['wall']['min_ms']:.3f}, "
+          f"{c['wall']['max_ms']:.3f}], one device "
+          f"{o['wall']['median_ms']:.3f} ms [{o['wall']['min_ms']:.3f}, "
+          f"{o['wall']['max_ms']:.3f}]")
+    return {"mesh": [2, 2], "scale": scale, "n": g.n,
+            "entries": len(g.src), "max_abs_diff_vs_ell": err,
+            "run_tol_max_abs_diff": err_tol,
+            "run_tol_iters": [c["res"].info.iters, o["res"].info.iters],
+            "run_wall_cards": c["wall"], "run_wall_one_device": o["wall"]}
 
 
 if __name__ == "__main__":

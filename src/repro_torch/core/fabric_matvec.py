@@ -48,6 +48,7 @@ from repro_torch.launch.mesh import Mesh
 
 __all__ = ["P", "PartitionSpec", "ShardedTensor", "shard_map", "all_gather",
            "psum", "psum_scatter", "psum_masked", "reshard", "matvec",
+           "gather_blocks",
            "matvec_scatter", "matvec_iterated_reshard",
            "fabric_gemv_batched", "local_matvec", "local_matmat",
            "collectives", "collective_bytes", "local_products",
@@ -260,6 +261,76 @@ def all_gather(xs, mesh: Mesh, axes, dim: int = 0) -> list:
     tiled all-gather), on every position."""
     return _group_op(xs, mesh, axes, lambda parts: torch.cat(parts, dim),
                      "all_gather")
+
+
+def gather_blocks(groups) -> int:
+    """The all-gather of blocks of unequal size, in place.  ``groups`` is a
+    list of ``(outs, spans)`` over the same positions: position ``q`` has
+    written its block at ``outs[q][a:b]``, ``(a, b) = spans[q]``, and each
+    block is copied there into every other position's ``outs[p]``.
+    Returns the bytes copied; each group counts as one ``all_gather``.
+
+    Between two cards the copies of a pair ``q -> p`` (every group's block)
+    run on a side stream of each card of the pair, after one event on each
+    card's current stream, so the twelve pairs of four cards copy at once.
+    Each card's current stream then waits on the side streams that
+    received its copies; the blocks it sent are kept from reuse until
+    their copies are done (``record_stream``), so its next step does not
+    wait for what it sends.  Positions of one device copy on its current
+    stream."""
+    outs0 = groups[0][0]
+    devs = [o.device for o in outs0]
+    cards = devs[0].type == "cuda" and len(set(devs)) > 1
+    if cards:
+        main = {d: torch.cuda.current_stream(d) for d in set(devs)}
+        ready = {d: s.record_event() for d, s in main.items()}
+        used = set()
+    moved = 0
+    for q, src in enumerate(devs):
+        for p, dst in enumerate(devs):
+            if p == q:
+                continue
+            if not cards or src == dst:
+                moved += _copy_blocks(groups, q, p)
+                continue
+            send, recv = _pair_streams(src, dst)
+            send.wait_event(ready[src])
+            recv.wait_event(ready[dst])
+            # copy_ between cards runs on the source's current stream and
+            # fences it with the destination's: here the pair's own two
+            with torch.cuda.stream(send), torch.cuda.stream(recv):
+                moved += _copy_blocks(groups, q, p)
+            for outs, _ in groups:
+                outs[q].record_stream(send)
+            used.add(recv)
+    if cards:
+        for s in used:
+            main[s.device].wait_stream(s)
+    for _ in groups:
+        collectives["all_gather"] += 1
+    collective_bytes["all_gather"] += moved
+    return moved
+
+
+def _copy_blocks(groups, q: int, p: int) -> int:
+    moved = 0
+    for outs, spans in groups:
+        a, b = spans[q]
+        outs[p][a:b].copy_(outs[q][a:b])
+        moved += _nbytes(outs[q][a:b])
+    return moved
+
+
+_side_streams: dict = {}
+
+
+def _pair_streams(src: torch.device, dst: torch.device) -> tuple:
+    """The side streams of the copies from card ``src`` to card ``dst``:
+    one on each card, made at first use."""
+    key = (src, dst)
+    if key not in _side_streams:
+        _side_streams[key] = (torch.cuda.Stream(src), torch.cuda.Stream(dst))
+    return _side_streams[key]
 
 
 def psum_scatter(xs, mesh: Mesh, axes, dim: int = 0) -> list:

@@ -13,8 +13,15 @@
 //
 //     y[i]   = s[i] * (sum_{j < cnt[i]} data[i, j] * x[idx[i, j]]
 //                      + sum_{e in overflow row i} ov_v[e] * x[ov_c[e]])
-//     new[i] = d * (y[i] + leak / n) + (1 - d) / n
+//     new[i] = d * (y[i] + leak / N) + (1 - d) / N
 //     leak'  = sum_i new[i] * dang[i]
+//
+// The layout may be a block of the rows of a larger H (the engine's
+// ``ell_split_sharded`` tier, one block per card): its n rows carry column
+// indices into the whole vector x of N entries, and dang is the block's.
+// Then leak' is the block's part of the next leak, and the leak read in
+// may be given as the parts of every block, summed here in their order.
+// On one card N = n and the leak is one number.
 //
 // Bound.  Each real entry is read once (its value and its int32 index;
 // the ELL block's padded slots are never read), and so are the row counts
@@ -268,7 +275,8 @@ rows_kernel(const T* __restrict__ data, const int* __restrict__ idx,
             const int* __restrict__ block_ov, const float* __restrict__ part,
             const float* __restrict__ scales,
             const float* __restrict__ dang, const float* __restrict__ x,
-            const float* __restrict__ leak_in, float* __restrict__ y,
+            const float* __restrict__ leak_in, int leak_parts,
+            int n_total, float* __restrict__ y,
             float* __restrict__ block_leak, unsigned* __restrict__ ticket,
             float* __restrict__ leak_out, float d, float tel) {
   __shared__ int ovj[kRowsPerBlock];
@@ -317,7 +325,10 @@ rows_kernel(const T* __restrict__ data, const int* __restrict__ idx,
   // stores are visible (at once after an ordinary launch)
   asm volatile("griddepcontrol.wait;" ::: "memory");
   __syncwarp(mask);
-  const float l = __fdiv_rn(__ldg(leak_in), static_cast<float>(n));
+  // the leak: its parts in order (one on one card), over the whole vector
+  float lk = __ldg(leak_in);
+  for (int k = 1; k < leak_parts; ++k) lk = __fadd_rn(lk, __ldg(leak_in + k));
+  const float l = __fdiv_rn(lk, static_cast<float>(n_total));
   float leak = 0.f;
   for (int rr = g; rr < kRowsPerBlock; rr += kGroups) {
     const int i = i0 + rr;
@@ -419,18 +430,21 @@ int ell_overflow_launch(int dtype, const void* ov_v, const void* ov_c,
   }));
 }
 
-// Pass 2 over n > 0 rows of width k0.  ``counts`` may be null (all k0
-// slots are read), ``scales`` is null unless the layout is int8.
-// ``block_leak`` holds one float per block, ``ticket`` is zero between
-// launches.  Returns the cudaError_t of the launch.
+// Pass 2 over n > 0 rows of width k0, of a vector x of n_total >= n
+// entries.  ``counts`` may be null (all k0 slots are read), ``scales`` is
+// null unless the layout is int8.  ``leak_in`` holds leak_parts >= 1
+// floats, summed in order.  ``block_leak`` holds one float per block,
+// ``ticket`` is zero between launches.  Returns the cudaError_t of the
+// launch.
 int ell_rows_launch(int dtype, const void* data, const void* idx,
                     const void* counts, int n, int k0, const void* ov_ptr,
                     const void* ov_rows, const void* block_ov,
                     const void* part, const void* scales, const void* dang,
-                    const void* x, const void* leak_in, void* y,
-                    void* block_leak, void* ticket, void* leak_out, float d,
-                    float tel, void* stream) {
-  if (n <= 0 || k0 < 0) return static_cast<int>(cudaErrorInvalidValue);
+                    const void* x, const void* leak_in, int leak_parts,
+                    int n_total, void* y, void* block_leak, void* ticket,
+                    void* leak_out, float d, float tel, void* stream) {
+  if (n <= 0 || k0 < 0 || leak_parts < 1 || n_total < n)
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(by_type(dtype, [&](auto* tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
     // a programmatic dependent launch: its blocks may start once every
@@ -453,7 +467,8 @@ int ell_rows_launch(int dtype, const void* data, const void* idx,
           static_cast<const int*>(block_ov), static_cast<const float*>(part),
           static_cast<const float*>(scales), static_cast<const float*>(dang),
           static_cast<const float*>(x), static_cast<const float*>(leak_in),
-          static_cast<float*>(y), static_cast<float*>(block_leak),
+          leak_parts, n_total, static_cast<float*>(y),
+          static_cast<float*>(block_leak),
           static_cast<unsigned*>(ticket), static_cast<float*>(leak_out), d,
           tel);
     };

@@ -6,8 +6,15 @@ ov_v[, scales])``, its :class:`EllMeta`, the dangling mask, a rank vector
 ``x`` and its leak ``sum(x * dang)``, and returns the next rank vector and
 its leak, both on the device:
 
-    new  = d * (s * (ELL(x) + overflow(x)) + leak / n) + (1 - d) / n
+    new  = d * (s * (ELL(x) + overflow(x)) + leak / N) + (1 - d) / N
     leak = sum(new * dang)
+
+The layout may also be a block of n rows of a larger H whose column
+indices reach the whole vector x of N entries (the ``ell_split_sharded``
+tier keeps one such block per card): ``dang`` is then the block's, the
+returned leak is the block's part of the next leak, and the leak handed in
+may be the (P,) parts of every block, summed in their order.  On one card
+N = n and the leak is one number.
 
 On CUDA tensors it launches the kernels (pass 1 over the overflow tail, in
 fixed chunks of :data:`CHUNK` entries; pass 2 over the rows, which also
@@ -119,6 +126,15 @@ def _ordered_sums(slot: torch.Tensor, values: torch.Tensor):
     return sums[slots], F.pad(torch.cumsum(size, 0), (1, 0))[:-1]
 
 
+def _leak_sum(leak: torch.Tensor) -> torch.Tensor:
+    """The leak from its parts, added in order (one part: itself)."""
+    parts = leak.reshape(-1)
+    total = parts[0]
+    for k in range(1, parts.numel()):
+        total = total + parts[k]
+    return total
+
+
 def ell_step_ref(operands: tuple, meta: EllMeta, dang: torch.Tensor,
                  x: torch.Tensor, leak: torch.Tensor, *,
                  d: float = 0.85) -> tuple[torch.Tensor, torch.Tensor]:
@@ -126,10 +142,12 @@ def ell_step_ref(operands: tuple, meta: EllMeta, dang: torch.Tensor,
     the ELL block's first ``counts`` entries of each row; the overflow by
     runs of :data:`RUN` entries, the runs of each (row, chunk) pair, the
     chunks of each row, each in order; the int8 scales on the row sum, the
-    damping, the next leak."""
+    leak's parts in order, the damping, the next leak (the block's part of
+    it)."""
     data, idx, _, ov_c, ov_v = operands[:5]
     scales = operands[5] if len(operands) == 6 else None
-    n, k0 = data.shape
+    k0 = data.shape[1]
+    n = x.shape[0]
     prod = upcast_f32(data) * x[idx.long()]
     if meta.counts is not None:
         slot = torch.arange(k0, device=x.device)
@@ -151,7 +169,7 @@ def ell_step_ref(operands: tuple, meta: EllMeta, dang: torch.Tensor,
         y = y.index_add(0, meta.ov_rows.long(), tail)
     if scales is not None:
         y = y * scales
-    new = d * (y + leak / n) + (1.0 - d) / n
+    new = d * (y + _leak_sum(leak) / n) + (1.0 - d) / n
     return new, torch.sum(new * dang)
 
 
@@ -166,7 +184,8 @@ def _library():
         lib.ell_overflow_launch.restype = ctypes.c_int
         lib.ell_rows_launch.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 3
-            + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 12
+            + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8
+            + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         lib.ell_rows_launch.restype = ctypes.c_int
         names = ("ell_step_chunk", "ell_step_rows_per_block", "ell_step_run")
@@ -193,32 +212,49 @@ def _ptr(t: torch.Tensor | None):
 
 def ell_step(operands: tuple, meta: EllMeta, dang: torch.Tensor,
              x: torch.Tensor, leak: torch.Tensor, *, d: float = 0.85,
-             annotate=None) -> tuple[torch.Tensor, torch.Tensor]:
+             annotate=None, out: tuple | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """One step: returns ``(new, leak')`` as above, ``new`` (n,) float32
     and ``leak'`` a 0-dim float32 tensor on x's device.
 
     ``operands``: the ``ell`` tier's ``(data (n, k0), idx (n, k0), ov_r,
     ov_c, ov_v)``, values float32, bfloat16, float16 or int8 (then with
-    float32 row scales (n,) appended), indices int32, all contiguous;
-    ``meta``: their :func:`ell_meta`; ``dang``, ``x``: (n,) float32;
-    ``leak``: ``sum(x * dang)``, one float32 on the device.  ``annotate``,
-    if given, maps ``"overflow"`` and ``"rows"`` to a context manager
-    placed around that pass's launch."""
+    float32 row scales (n,) appended), indices int32 below N, all
+    contiguous; ``meta``: their :func:`ell_meta`; ``dang``: (n,) float32;
+    ``x``: (N,) float32, N >= n; ``leak``: ``sum(x * dang)`` over the
+    whole vector, one float32 or its (P,) parts, on the device.
+    ``annotate``, if given, maps ``"overflow"`` and ``"rows"`` to a context
+    manager placed around that pass's launch.  ``out``, if given, is the
+    ``(new, leak')`` pair to write into: a contiguous (n,) float32 view and
+    a one-float32 view, on x's device."""
     if all(t.device.type == "cpu" for t in (x, dang, operands[0])):
-        return ell_step_ref(operands, meta, dang, x, leak, d=d)
+        got = ell_step_ref(operands, meta, dang, x, leak, d=d)
+        if out is None:
+            return got
+        out[0].copy_(got[0])
+        out[1].copy_(got[1].reshape(out[1].shape))
+        return out
     data, idx, _, ov_c, ov_v = operands[:5]
     scales = operands[5] if len(operands) == 6 else None
     n, k0 = data.shape
+    N = x.shape[0]
     dev = x.device
     _check(dev.type == "cuda" and all(
         t.device == dev for t in (data, ov_v, dang, leak, meta.ov_ptr)),
         "all tensors must be on one CUDA device")
     _check(data.dtype in _DTYPES and ov_v.dtype == data.dtype,
            f"unsupported storage dtypes {data.dtype} / {ov_v.dtype}")
-    _check(x.shape == (n,) and dang.shape == (n,) and leak.numel() == 1
+    _check(x.dim() == 1 and N >= n and N < 2**31 and dang.shape == (n,)
+           and leak.numel() >= 1 and leak.is_contiguous()
            and x.dtype == dang.dtype == leak.dtype == torch.float32,
-           f"x {tuple(x.shape)} / dang {tuple(dang.shape)} must be ({n},) "
-           "float32 and leak one float32")
+           f"x {tuple(x.shape)} must be (N >= {n},), dang "
+           f"{tuple(dang.shape)} ({n},), float32, and the leak float32")
+    _check(out is None or (
+        out[0].shape == (n,) and out[1].numel() == 1
+        and out[0].is_contiguous()
+        and all(t.device == dev and t.dtype == torch.float32 for t in out)),
+        f"out must be a contiguous ({n},) float32 view and one float32 on "
+        "x's device")
     _check(idx.dtype == ov_c.dtype == torch.int32
            and (scales is None or scales.dtype == torch.float32),
            "indices must be int32 and int8 scales float32")
@@ -238,8 +274,11 @@ def ell_step(operands: tuple, meta: EllMeta, dang: torch.Tensor,
                           device=dev)
     part = scratch.data_ptr()
     block_leak = part + 4 * (R + chunks)
-    new = torch.empty(n, dtype=torch.float32, device=dev)
-    leak_out = torch.empty((), dtype=torch.float32, device=dev)
+    if out is None:
+        new = torch.empty(n, dtype=torch.float32, device=dev)
+        leak_out = torch.empty((), dtype=torch.float32, device=dev)
+    else:
+        new, leak_out = out
     ranges = annotate or (lambda _: contextlib.nullcontext())
     x = x.contiguous()
     with torch.cuda.device(dev):          # launch on the tensors' card
@@ -259,8 +298,9 @@ def ell_step(operands: tuple, meta: EllMeta, dang: torch.Tensor,
                 k0, meta.ov_ptr.data_ptr(), meta.ov_rows.data_ptr(),
                 meta.block_ov.data_ptr(), part, _ptr(scales),
                 dang.data_ptr(), x.data_ptr(), leak.data_ptr(),
-                new.data_ptr(), block_leak, meta.ticket.data_ptr(),
-                leak_out.data_ptr(), float(d), float((1.0 - d) / n), stream)
+                leak.numel(), N, new.data_ptr(), block_leak,
+                meta.ticket.data_ptr(), leak_out.data_ptr(), float(d),
+                float((1.0 - d) / N), stream)
         if err:
             raise KernelLaunchError(
                 f"ell_step rows launch failed: cudaError_t {err}")

@@ -67,6 +67,9 @@ def layout_from_numpy(backend: str, arrays: dict, *, precision: str,
     them over it in the engine's layouts; the result carries the mesh."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+    if backend not in _N_OPERANDS:
+        raise ValueError(f"{backend} has no counterpart in the JAX package "
+                         "to carry a layout from")
     precision = resolve_precision(precision)
     sharded = backend in SHARDED_BACKENDS
     if sharded and mesh is None:

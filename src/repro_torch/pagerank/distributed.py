@@ -17,6 +17,12 @@ the ``dense_sharded`` / ``ell_sharded`` tiers of
   Gauss–Southwell frontier push on the same two layouts.
 * :func:`ppr_distributed_dense` / :func:`ppr_distributed_sparse` — the
   batched (N, Q) personalized PageRank sharded over the **query** axis.
+* :func:`split_ell_start` / :func:`split_ell_step` — the ``ell_split_sharded``
+  tier's state and step: a split ELL of a block of rows per position of the
+  flattened mesh, stepped by the split-ELL kernel against the position's
+  replica of the rank vector, then the fresh blocks and the blocks' parts
+  of the next leak exchanged (:func:`repro_torch.core.fabric_matvec
+  .gather_blocks`); the engine's own loops run it.
 
 Uneven shapes are zero-padded: every entry point takes ``n_true`` and keeps
 the ``1/n`` teleports, the dangling leak and the residuals on the real
@@ -35,10 +41,12 @@ import torch
 from repro_torch.core import fabric_matvec as fm
 from repro_torch.core.fabric_matvec import P, ShardedTensor, shard_map
 from repro_torch.kernels.common import upcast_f32
+from repro_torch.kernels.ell_step import ell_step
 from repro_torch.launch.mesh import Mesh
 from repro_torch.obs.trace import instrumented_tol_loop
 
-__all__ = ["pagerank_distributed", "pagerank_distributed_tol",
+__all__ = ["split_ell_start", "split_ell_step",
+           "pagerank_distributed", "pagerank_distributed_tol",
            "pagerank_distributed_sparse", "pagerank_distributed_sparse_tol",
            "push_distributed_tol", "push_distributed_sparse_tol",
            "ppr_distributed_dense", "ppr_distributed_sparse",
@@ -498,3 +506,70 @@ def make_sharded_inputs_dense(H, mesh: Mesh, row_axis: str = "data",
     """Host -> device placement of a dense H in the fabric layout."""
     return ShardedTensor.from_global(torch.as_tensor(H), mesh,
                                      P(row_axis, col_axis))
+
+
+# --------------------------------------------------------------------------- #
+# split-ELL row blocks of unequal size (flattened mesh, ell_split_sharded)    #
+# --------------------------------------------------------------------------- #
+def _spans(rows) -> tuple[list, list]:
+    """The row span of every block and the slot of its leak part."""
+    spans = list(zip(rows[:-1], rows[1:]))
+    return spans, [(p, p + 1) for p in range(len(spans))]
+
+
+def split_ell_start(x: torch.Tensor, dangs, rows, mesh: Mesh) -> tuple:
+    """The state of :func:`split_ell_step` at the rank vector ``x`` (N,),
+    in the layout's order: a replica of ``x`` on every position, then on
+    every position the (P,) parts of its leak ``sum(x * dang)``, one per
+    block, each summed on the block's position."""
+    devs = mesh.device_list
+    spans, slots = _spans(rows)
+    xs = [x.to(dev) for dev in devs]
+    parts = [torch.empty(len(devs), dtype=torch.float32, device=dev)
+             for dev in devs]
+    for p, (a, b) in enumerate(spans):
+        parts[p][p] = torch.sum(xs[p][a:b] * dangs[p])
+    fm.gather_blocks([(parts, slots)])
+    return (*xs, *parts)
+
+
+def split_ell_step(operands, metas, dangs, rows, mesh: Mesh, d: float,
+                   metrics):
+    """The ``ell_split_sharded`` step on the state ``(x_0 .. x_P-1, l_0 ..
+    l_P-1)`` of :func:`split_ell_start`: on every position both passes of
+    the split-ELL kernel over its block (``operands[p]``, ``metas[p]``,
+    ``dangs[p]``, rows ``rows[p]:rows[p + 1]`` of H, columns into the whole
+    vector) against its replica ``x_p`` and the leak's parts ``l_p``,
+    written into its rows of a fresh vector and its slot of fresh parts;
+    then, in the profiler range ``engine.step.exchange``, every block and
+    every part copied to every other position (one
+    :func:`~repro_torch.core.fabric_matvec.gather_blocks`, the part of a
+    block on the streams of its block's copy).  Every position
+    sums the parts in block order, so the replicas stay equal bit for bit.
+    Counts ``engine.sharded_steps`` and the bytes copied in
+    ``engine.exchange_bytes`` on the host, with no sync."""
+    devs = mesh.device_list
+    n = int(rows[-1])
+    spans, slots = _spans(rows)
+    steps = metrics.counter("engine.sharded_steps")
+    moved = metrics.counter("engine.exchange_bytes")
+
+    def ranges(part):
+        return metrics.annotate(f"engine.step.{part}")
+
+    def step(state):
+        xs, parts = state[:len(devs)], state[len(devs):]
+        new = [torch.empty(n, dtype=torch.float32, device=dev)
+               for dev in devs]
+        new_parts = [torch.empty(len(devs), dtype=torch.float32, device=dev)
+                     for dev in devs]
+        for p, (a, b) in enumerate(spans):
+            ell_step(operands[p], metas[p], dangs[p], xs[p], parts[p], d=d,
+                     annotate=ranges, out=(new[p][a:b], new_parts[p][p:p + 1]))
+        with metrics.annotate("engine.step.exchange"):
+            nbytes = fm.gather_blocks([(new, spans), (new_parts, slots)])
+        steps.inc()
+        moved.inc(nbytes)
+        return (*new, *new_parts)
+
+    return step

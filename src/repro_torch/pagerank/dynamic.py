@@ -284,6 +284,10 @@ class DynamicPageRankEngine(PageRankEngine):
         self.rebuild_frac = float(rebuild_frac)
         self.symmetric = bool(symmetric)
         self._pr: torch.Tensor | None = None
+        if self._TIERS.get(kw.get("backend"), Tier).edges_on_mesh:
+            raise NotImplementedError(
+                f"the dynamic engine does not run on {kw['backend']}, which "
+                "keeps no host edge set; use ell_sharded")
         super().__init__(src, dst, n, **kw)
         # the parent's edge set reversed: sorted dst * n + src
         self._rkeys = _edge_set(self._keys % self.n, self._keys // self.n,

@@ -17,6 +17,11 @@ product, its global step and its push and personalized operators:
   :class:`~repro_torch.launch.mesh.Mesh` through the paper's fabric
   schedule, or full-K ELL rows over the flattened mesh
   (:class:`DenseShardedTier`, :class:`EllShardedTier`).
+* ``"ell_split_sharded"`` — one split ELL per position of the flattened
+  mesh, the rows in the ``ell`` tier's degree order cut into blocks of
+  about equal entries, built on the mesh's devices from the caller's edges,
+  each step the split-ELL kernel on every block and an exchange of the
+  fresh blocks (:class:`EllSplitShardedTier`).
 * ``"auto"`` — :func:`select_backend` by density and device topology (more
   than one device picks a sharded tier).
 
@@ -73,8 +78,8 @@ __all__ = ["PageRankEngine", "select_backend", "default_mesh", "BACKENDS",
            "SHARDED_BACKENDS", "PRECISIONS"]
 
 BACKENDS = ("dense", "ell", "bsr", "fused_dense", "dense_sharded",
-            "ell_sharded")
-SHARDED_BACKENDS = ("dense_sharded", "ell_sharded")
+            "ell_sharded", "ell_split_sharded")
+SHARDED_BACKENDS = ("dense_sharded", "ell_sharded", "ell_split_sharded")
 
 # auto-selection thresholds on nnz / n^2 (the CPU and every multi-device
 # mesh keep the JAX package's), and the single-card CUDA branch, set from
@@ -235,6 +240,19 @@ def _transition_csr(edges: DeviceEdges, n: int) -> CSRMatrix:
                      shape=(n, n))
 
 
+def _degree_order(outdeg: torch.Tensor, n: int):
+    """The ``ell`` layouts' vertex order: past :data:`HOT_COLUMNS` vertices
+    the vertices by out-degree, descending, ties by id (one stable sort of
+    n keys), as ``(order, pos)``: ``order[i]`` the caller's id of layout
+    position ``i``, ``pos`` its inverse; at or below it ``(None, None)``."""
+    if n <= HOT_COLUMNS:
+        return None, None
+    order = torch.sort(-outdeg, stable=True).indices
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(n, device=order.device)
+    return order, pos
+
+
 def _scatter(values: torch.Tensor, at: torch.Tensor,
              size: int) -> torch.Tensor:
     """A zero vector of ``size`` with ``values`` written at ``at``; an
@@ -265,6 +283,28 @@ def _split_ell(csr: CSRMatrix, k0: int | None = None):
             int(ov.numel()))
 
 
+def _pack_split_ell(e, csr: CSRMatrix, k0: int | None):
+    """The split ELL of a transition CSR (all of H, or a block of its
+    rows whose columns reach the whole vector) at the row budget ``k0``
+    (``None``: :func:`_split_ell`'s own) in the engine's storage
+    precision, and its kernel metadata: ``(operands, meta, k0,
+    overflow_nnz)``.  int8 takes its scales over the FULL row (the ELL
+    block's entries and the overflow tail share the row's abs-max) as a
+    sixth operand."""
+    ops, k0, ov_nnz = _split_ell(csr, k0=k0)
+    meta = ell_meta(ops[2], csr.shape[0],
+                    torch.clamp(csr.indptr.diff(), max=k0))
+    data, idx, ov_r, ov_c, ov_v = ops
+    if e.precision != "int8":
+        return ((data.to(e.storage_dtype), idx, ov_r, ov_c,
+                 ov_v.to(e.storage_dtype)), meta, k0, ov_nnz)
+    absmax = data.abs().amax(dim=1).scatter_reduce(
+        0, ov_r.long(), ov_v.abs(), "amax")
+    scales = rowmax_scales(absmax)
+    return ((quantize_int8(data, scales[:, None]), idx, ov_r, ov_c,
+             quantize_int8(ov_v, scales[ov_r]), scales), meta, k0, ov_nnz)
+
+
 # the registry of the products that run outside an engine's step loop
 _QUIET = NullRegistry()
 
@@ -291,6 +331,7 @@ class Tier:
     layout before the upload, and ``upload(e, host, dang)``, which places
     it and the dangling mask."""
     sharded = False         # runs on the engine's mesh (distributed.py)
+    edges_on_mesh = False   # builds from the caller's edges on the mesh
     fused = False           # steps through the fused kernel (K1)
     device_csr = False      # builds its transition CSR in prepare.csr
     node_axis = 0           # the node axis of the batched layout
@@ -505,13 +546,9 @@ class EllTier(Tier):
         registry's) get ``order``, ``"degree"`` or ``"given"``, and
         ``hot_share``, the share of the entries whose column lies among
         the first :data:`HOT_COLUMNS` of the layout."""
-        e._order = e._pos = None
-        if e.n > HOT_COLUMNS:
-            order = torch.sort(-edges.outdeg, stable=True).indices
-            pos = torch.empty_like(order)
-            pos[order] = torch.arange(e.n, device=order.device)
-            e._order, e._pos = order, pos
-            pos = pos.to(edges.src.dtype)
+        e._order, e._pos = _degree_order(edges.outdeg, e.n)
+        if e._order is not None:
+            order, pos = e._order, e._pos.to(edges.src.dtype)
             edges = DeviceEdges(torch.index_select(pos, 0, edges.src),
                                 torch.index_select(pos, 0, edges.dst),
                                 edges.outdeg[order], edges.indeg[order])
@@ -525,21 +562,9 @@ class EllTier(Tier):
         return (edges.outdeg == 0).float()
 
     def pack(self, e, src, dst, csr, dang):
-        ops, k0, ov_nnz = _split_ell(csr, k0=e._ell_k)
+        host, e._ell_meta, k0, ov_nnz = _pack_split_ell(e, csr, e._ell_k)
         e.layout = f"ell(k0={k0})+overflow(nnz={ov_nnz})"
-        e._ell_meta = ell_meta(ops[2], e.n,
-                               torch.clamp(csr.indptr.diff(), max=k0))
-        data, idx, ov_r, ov_c, ov_v = ops
-        if e.precision != "int8":
-            return (data.to(e.storage_dtype), idx, ov_r, ov_c,
-                    ov_v.to(e.storage_dtype))
-        # int8 scales over the FULL row: the ELL block's entries and the
-        # overflow tail share the row's abs-max; a sixth operand
-        absmax = data.abs().amax(dim=1).scatter_reduce(
-            0, ov_r.long(), ov_v.abs(), "amax")
-        scales = rowmax_scales(absmax)
-        return (quantize_int8(data, scales[:, None]), idx, ov_r, ov_c,
-                quantize_int8(ov_v, scales[ov_r]), scales)
+        return host
 
     def upload(self, e, host, dang):            # built on the device
         e._operands, e._dang = host, dang
@@ -938,10 +963,230 @@ class EllShardedTier(ShardedTier):
             torch.sum(data[..., None] * X[idx], dim=1), sc)
 
 
+def _balanced_rows(counts: torch.Tensor, parts: int) -> list[int]:
+    """Row bounds ``[0, r_1, ..., n]`` of ``parts`` blocks of consecutive
+    rows whose entry ``counts`` (n,) add up to about equal sums: each
+    bound is the row before which the entries come nearest to its share,
+    and every block keeps at least one row."""
+    n = counts.numel()
+    cum = torch.cumsum(counts, 0)
+    total = int(cum[-1])
+    targets = [(total * b + parts // 2) // parts for b in range(1, parts)]
+    at = torch.searchsorted(cum, torch.tensor(targets, dtype=cum.dtype,
+                                              device=cum.device))
+    # entries before row i: cum[i - 1]; the first row at or past a share
+    # is at[b], so the bound is at[b] or at[b] + 1
+    before = F.pad(cum, (1, 0))
+    lo = before[at].tolist()
+    hi = before[torch.clamp(at + 1, max=n)].tolist()
+    bounds = [0]
+    for b, (i, t) in enumerate(zip(at.tolist(), targets), start=1):
+        r = i if t - lo[b - 1] <= hi[b - 1] - t else i + 1
+        bounds.append(min(max(r, bounds[-1] + 1), n - (parts - b)))
+    return bounds + [n]
+
+
+class EllSplitShardedTier(ShardedTier):
+    """One split ELL per position of the engine's mesh, flattened over
+    all of its axes.  The vertices are numbered as the ``ell`` tier numbers
+    them (:func:`_degree_order`), and the rows are cut into one block per
+    position so that the blocks carry about equal numbers of entries
+    (:func:`_balanced_rows`): in degree order equal row counts would put
+    most entries on the first.  Each block is a split ELL
+    (:func:`_split_ell`) whose column indices reach the whole vector, with
+    its :func:`~repro_torch.kernels.ell_step.ell_meta`, on its position's
+    device.  Every block takes the ``k0`` that the ``ell`` tier takes for
+    the whole graph (``ell_k``, default the 90th percentile of all the
+    rows' counts), so a row is split as there: a block of hub rows keeps
+    their long tails in the overflow, whose chunks spread them over the
+    card, and not in ELL rows that few lanes walk.
+
+    The build (:meth:`build`) never puts the whole edge set on one device,
+    nor a whole-graph layout on the host.  A step runs both passes of the
+    split-ELL kernel over every block against that position's replica of
+    the rank vector, then exchanges the fresh blocks and the blocks' parts
+    of the next leak (:func:`~repro_torch.pagerank.distributed
+    .split_ell_step`); ``run`` and ``run_tol`` are the engine's one loop and
+    one tolerance loop.  The engine keeps per position the operands
+    (``_operands``), the metadata (``_ell_meta``) and the dangling mask of
+    the block's rows (``_dang``), and the row bounds (``_rows``).
+
+    The host edge bookkeeping that the landmark index reads (``_keys``,
+    ``_outdeg``, ``_indeg``) stays unbuilt on this tier, and ``ppr``, the
+    push, the dynamic engine and ``from_layout`` raise: they run on
+    ``ell_sharded``."""
+    edges_on_mesh = True
+    run = Tier.run
+    run_tol = Tier.run_tol
+
+    def shard_multiple(self, e):
+        return 1                    # blocks are ragged: N is never padded
+
+    def build(self, e, src, dst, edges=None):
+        """The layout from the caller's edges, in the phases
+        ``prepare.shard`` (each position uploads its share of the edge
+        list and sends every edge to the position that owns its ``dst``
+        among equal ranges of the caller's ids, where the edges are
+        deduplicated, exactly, since a repeated edge has one ``dst``; the
+        out- and in-degrees summed across positions; the degree order and
+        the row bounds; each edge sent on to the block that owns its row),
+        ``prepare.csr`` (each block's rows of the transition CSR) and
+        ``prepare.pack`` (each block's split ELL).  The span
+        ``prepare.shard`` gets the fields ``rows_per_card`` and
+        ``entries_per_card``, one entry per position."""
+        devs, n = e.mesh.device_list, e.n
+        parts = len(devs)
+        if n < parts:
+            raise ValueError(f"ell_split_sharded needs a vertex per mesh "
+                             f"position: n = {n} on {parts} positions")
+        with e._phase("prepare.shard") as fields:
+            keys = _keys_by_dst(src, dst, n, devs)
+            outdeg = _summed(keys, n, devs[0], lambda k: k % n)
+            indeg = _summed(keys, n, devs[0], lambda k: k // n)
+            e._order, e._pos = _degree_order(outdeg, n)
+            if e._order is not None:
+                outdeg, indeg = outdeg[e._order], indeg[e._order]
+            rows = _balanced_rows(indeg, parts)
+            keys = _keys_by_block(keys, e._pos, rows, n, devs)
+            entries = [int(k.numel()) for k in keys]
+            e._rows = tuple(rows)
+            e.n_edges = sum(entries)
+            e.density = e.n_edges / float(n * n)
+            if fields is not None:          # None from a NullRegistry
+                fields["rows_per_card"] = [b - a for a, b
+                                           in zip(rows[:-1], rows[1:])]
+                fields["entries_per_card"] = entries
+        with e._phase("prepare.csr"):
+            inv = torch.reciprocal(outdeg.float())
+            csrs = []
+            for p, dev in enumerate(devs):
+                a, b = rows[p], rows[p + 1]
+                csrs.append(_block_csr(keys[p], a, b, n, inv.to(dev),
+                                       indeg[a:b].to(dev)))
+                keys[p] = None
+        with e._phase("prepare.pack"):
+            k0 = e._ell_k if e._ell_k is not None else max(
+                4, int(np.percentile(indeg.cpu().numpy(), 90)))
+            packed = [_pack_split_ell(e, csr, k0) for csr in csrs]
+            del csrs
+            e._operands = tuple(ops for ops, *_ in packed)
+            e._ell_meta = tuple(meta for _, meta, *_ in packed)
+            e._dang = tuple((outdeg[a:b] == 0).float().to(dev)
+                            for dev, a, b in zip(devs, rows[:-1], rows[1:]))
+            e.layout = (f"ell_split_sharded(blocks={parts}, k0={k0}, "
+                        f"overflow={[ov for *_, ov in packed]})")
+
+    def adopt(self, e, layout):
+        self._unsupported("from_layout")
+
+    @staticmethod
+    def _unsupported(what: str):
+        raise NotImplementedError(
+            f"{what} is not supported on ell_split_sharded, which runs "
+            "run and run_tol only; use ell_sharded")
+
+    def start(self, e, x0):
+        x = _uniform(e.n, e.device) if x0 is None else EllTier.place(e, x0)
+        return dist.split_ell_start(x, e._dang, e._rows, e.mesh)
+
+    def step(self, e, metrics):
+        return dist.split_ell_step(e._operands, e._ell_meta, e._dang,
+                                   e._rows, e.mesh, e.d, metrics)
+
+    def vector(self, e, state):
+        return state[0]
+
+    def ranks(self, e, state):
+        return self.leave(e, state[0])
+
+    def leave(self, e, X):
+        return X if e._pos is None else X[e._pos]
+
+    def push(self, e, x0, tol, max_pushes, trace):
+        self._unsupported("the push")
+
+    def push_operator(self, e, x0):
+        self._unsupported("the push")
+
+    def ppr(self, e, V, n_iters):
+        self._unsupported("ppr")
+
+    def ppr_operator(self, e, V):
+        self._unsupported("ppr")
+
+    def batched_product(self, e):
+        self._unsupported("the batched product")
+
+
+def _keys_by_dst(src, dst, n: int, devs) -> list[torch.Tensor]:
+    """The caller's edges as sorted unique keys ``dst * n + src`` (int64),
+    on the position that owns ``dst`` among equal ranges of the caller's
+    ids: each position uploads one contiguous share of the arrays, keeps
+    its unique keys and sends each range's keys to its owner, which
+    deduplicates what it receives."""
+    parts = len(devs)
+    step = -(-n // parts)
+    cuts = np.linspace(0, len(src), parts + 1).astype(np.int64)
+    sent: list[list] = [[] for _ in devs]
+    for p, dev in enumerate(devs):
+        a, b = cuts[p], cuts[p + 1]
+        keys = torch.unique(_device_ids(dst[a:b], dev) * n
+                            + _device_ids(src[a:b], dev), sorted=True)
+        at = torch.searchsorted(keys, torch.arange(
+            1, parts, device=dev, dtype=torch.int64) * (step * n)).tolist()
+        for q, piece in enumerate(torch.tensor_split(keys, at)):
+            sent[q].append(piece.to(devs[q]))
+        del keys
+    return [torch.unique(torch.cat(pieces), sorted=True) for pieces in sent]
+
+
+def _summed(keys, n: int, dev, ids) -> torch.Tensor:
+    """``bincount(ids(keys[p]))`` of every position added up, in order,
+    on ``dev``: a degree vector (int64, length n)."""
+    total = None
+    for k in keys:
+        c = torch.bincount(ids(k), minlength=n).to(dev)
+        total = c if total is None else total + c
+    return total
+
+
+def _keys_by_block(keys, pos, rows, n: int, devs) -> list[torch.Tensor]:
+    """Every position's keys ``dst * n + src`` in the caller's ids, sent to
+    the block that owns ``dst`` in the layout's order and there sorted as
+    keys ``row * n + col`` of the layout (row-major)."""
+    sent: list[list] = [[] for _ in devs]
+    for p, (k, dev) in enumerate(zip(keys, devs)):
+        d, s = k // n, k % n
+        if pos is not None:
+            where = pos.to(dev)
+            d, s = where[d], where[s]
+        k = d * n + s
+        for q, (a, b) in enumerate(zip(rows[:-1], rows[1:])):
+            sent[q].append(k[(d >= a) & (d < b)].to(devs[q]))
+        keys[p] = None
+        del d, s, k
+    return [torch.sort(torch.cat(pieces)).values for pieces in sent]
+
+
+def _block_csr(keys: torch.Tensor, a: int, b: int, n: int,
+               inv: torch.Tensor, indeg: torch.Tensor) -> CSRMatrix:
+    """Rows ``a:b`` of the transition CSR from their sorted keys ``row * n
+    + col`` in the layout's order, as :func:`_transition_csr` builds all
+    of it: values ``inv[col]`` (``inv`` the reciprocal out-degrees, float32),
+    ``indptr`` the cumulative in-degrees ``indeg`` of the rows, rows local
+    to the block, columns global; int32 indices."""
+    rows = torch.div(keys, n, rounding_mode="floor")
+    cols = keys - rows * n
+    indptr = F.pad(torch.cumsum(indeg, 0), (1, 0))
+    return CSRMatrix(inv[cols], cols.int(), indptr.int(), (rows - a).int(),
+                     shape=(b - a, n))
+
+
 # every backend's tier, one instance each
 TIERS = {"dense": DenseTier(), "ell": EllTier(), "bsr": BsrTier(),
          "fused_dense": FusedDenseTier(), "dense_sharded": DenseShardedTier(),
-         "ell_sharded": EllShardedTier()}
+         "ell_sharded": EllShardedTier(),
+         "ell_split_sharded": EllSplitShardedTier()}
 
 
 def _engine_device(device, mesh: Mesh | None) -> torch.device:
@@ -986,23 +1231,31 @@ class PageRankEngine:
         self.metrics = metrics if metrics is not None else default_registry()
         m = self.metrics
         with m.span("prepare") as fields:
-            # host edge-set bookkeeping (sorted src*n+dst keys + degree
-            # vectors): the landmark index (repro_torch.pagerank.landmarks)
-            # reads hub degrees and out-neighborhoods off the engine
-            edges = _edge_set(src, dst, n, dev, m)
-            src, dst, self._keys, self._outdeg, self._indeg = edges[:5]
-            self.n_edges = int(len(src))
-            self.density = self.n_edges / float(n * n)
-            if backend == "auto":
-                backend = select_backend(
-                    n, self.density, device=dev,
-                    n_devices=None if mesh is None else mesh.size)
+            on_device = None
+            if self._TIERS.get(backend, Tier).edges_on_mesh:
+                # the tier builds from the caller's edges on its mesh and
+                # keeps no host edge bookkeeping
+                self._keys = self._outdeg = self._indeg = None
+            else:
+                # host edge-set bookkeeping (sorted src*n+dst keys + degree
+                # vectors): the landmark index (repro_torch.pagerank
+                # .landmarks) reads hub degrees and out-neighborhoods off
+                # the engine
+                edges = _edge_set(src, dst, n, dev, m)
+                src, dst, self._keys, self._outdeg, self._indeg = edges[:5]
+                on_device = edges.on_device
+                self.n_edges = int(len(src))
+                self.density = self.n_edges / float(n * n)
+                if backend == "auto":
+                    backend = select_backend(
+                        n, self.density, device=dev,
+                        n_devices=None if mesh is None else mesh.size)
             if fields is not None:              # None from a NullRegistry
                 fields["backend"] = backend
             self._init_common(n, d, backend, precision, dev, mesh)
             self._ell_k = ell_k
             self._bsr_block_size = int(bsr_block_size)
-            self._prepare_layout(src, dst, edges.on_device)
+            self._prepare_layout(src, dst, on_device)
 
     def _init_common(self, n, d, backend, precision, device,
                      mesh=None) -> None:

@@ -682,6 +682,71 @@ def test_ell_kernel_on_an_ordered_layout(cuda, precision):
         assert float(torch.sum(torch.abs(pr - ident.run(10)))) <= 1.5e-5
 
 
+def _split_engine(src, dst, n, devices, **kw):
+    mesh = make_mesh((len(devices),), ("shard",), devices)
+    return PageRankEngine(src, dst, n, backend="ell_split_sharded",
+                          mesh=mesh, metrics=NullRegistry(), **kw)
+
+
+@pytest.mark.parametrize("precision", list(STORE))
+def test_ell_step_kernel_on_a_block_of_rows(cuda, precision):
+    """The block form: every block of an ``ell_split_sharded`` layout on
+    four positions of the card, stepped against the whole vector with the
+    leak handed in as the blocks' four parts, written into its rows of a
+    longer vector and its slot of the parts, against the plain version
+    (rtol 1e-5, atol 1e-7); the rows outside the block stay untouched and
+    a second call gives the same bits."""
+    for case, (src, dst, n, ell_k) in _ell_graphs().items():
+        eng = _split_engine(src, dst, n, [cuda] * 4, ell_k=ell_k,
+                            precision=precision)
+        spans = list(zip(eng._rows[:-1], eng._rows[1:]))
+        x = _rank_like(n, n, cuda)
+        parts = torch.stack([torch.sum(x[a:b] * dg)
+                             for (a, b), dg in zip(spans, eng._dang)])
+        for p, (a, b) in enumerate(spans):
+            args = (eng.operands[p], eng._ell_meta[p], eng._dang[p], x, parts)
+            new = torch.zeros(n, device=cuda)
+            lk = torch.zeros(4, device=cuda)
+            ell.ell_step(*args, d=eng.d, out=(new[a:b], lk[p:p + 1]))
+            want, want_lk = ell.ell_step_ref(*args, d=eng.d)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(new[a:b], want, rtol=1e-5, atol=1e-7,
+                                       msg=case)
+            torch.testing.assert_close(lk[p], want_lk, rtol=1e-5, atol=1e-7,
+                                       msg=case)
+            assert not new[:a].any() and not new[b:].any()
+            assert int(torch.count_nonzero(lk)) <= 1
+            again, again_lk = ell.ell_step(*args, d=eng.d)
+            assert torch.equal(again, new[a:b]) and torch.equal(again_lk,
+                                                                lk[p])
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+def test_ell_split_sharded_tier_on_the_card(cuda, precision):
+    """``run(10)`` and ``run_tol`` of the tier on four positions of the
+    card against the same tier on four CPU positions (the plain version;
+    rtol 1e-5, atol 1e-7; ``run_tol(1e-6)``'s steps within 1 in f32) and,
+    in f32, against the ``ell`` tier; two launches a block and step; two
+    ``run(10)`` give the same bits."""
+    src, dst, n, _ = _ell_graphs()["chunks"]
+    eng = _split_engine(src, dst, n, [cuda] * 4, precision=precision)
+    cpu = _split_engine(src, dst, n, ["cpu"] * 4, precision=precision)
+    before = ell.launches[precision]
+    got = eng.run(10)
+    assert ell.launches[precision] - before == 2 * 10 * 4
+    torch.testing.assert_close(got.cpu(), cpu.run(10), rtol=1e-5, atol=1e-7)
+    assert torch.equal(eng.run(10), got)
+    r = eng.run_tol(1e-6, max_iters=200)
+    rc = cpu.run_tol(1e-6, max_iters=200)
+    torch.testing.assert_close(r[0].cpu(), rc[0], rtol=1e-5, atol=1e-7)
+    if precision == "f32":
+        # the reduced storages stall near their residual floor, where two
+        # summation orders stop at different steps (as on the ell tier)
+        assert r.info.converged and abs(r.info.iters - rc.info.iters) <= 1
+        one = _ell_engine(src, dst, n, cuda)
+        torch.testing.assert_close(got, one.run(10), rtol=1e-5, atol=1e-7)
+
+
 def test_ell_step_rejects_what_the_kernel_does_not_take(cuda):
     src, dst, n, _ = _ell_graphs()["hubs"]
     eng = _ell_engine(src, dst, n, cuda)

@@ -98,12 +98,40 @@ def test_each_backend_has_one_tier():
         tengine.SHARDED_BACKENDS)
 
 
+def _f64_ranks(n_iters, d=0.85):
+    """Global PageRank of ``_graph()`` in float64."""
+    src, dst = _graph()
+    keys = np.unique(src.astype(np.int64) * N + dst)
+    s, t = keys // N, keys % N
+    outdeg = np.bincount(s, minlength=N).astype(np.float64)
+    x = np.full(N, 1.0 / N)
+    for _ in range(n_iters):
+        y = np.bincount(t, weights=x[s] / outdeg[s], minlength=N)
+        x = d * (y + x[outdeg == 0].sum() / N) + (1.0 - d) / N
+    return torch.from_numpy(x)
+
+
 @pytest.mark.parametrize("backend", tengine.BACKENDS)
 def test_the_constructor_and_from_layout_pick_the_same_tier(backend):
     eng = _engine(backend, "int8")
     assert eng._tier is tengine.TIERS[backend]
     layout = {"operands": eng.operands, "dang": eng._dang,
               "scales": eng._scales, "mesh": eng.mesh}
+    if eng._tier.edges_on_mesh:
+        # no JAX tier lays out such a layout: the tier takes none, and is
+        # held in its place to float64 (int8 keeps 1 / outdeg to 8 bits a
+        # row: the ell tier reads 4.3e-3 of a rank from it here) and to
+        # the ell tier, whose rows it quantizes alike
+        with pytest.raises(NotImplementedError, match="ell_sharded"):
+            PageRankEngine.from_layout(backend, layout, N, precision="int8",
+                                       device=eng.device,
+                                       metrics=NullRegistry())
+        got = eng.run(5)
+        torch.testing.assert_close(got.double(), _f64_ranks(5), rtol=1e-2,
+                                   atol=1e-6)
+        torch.testing.assert_close(got, _engine("ell", "int8").run(5),
+                                   rtol=1e-5, atol=1e-7)
+        return
     carried = PageRankEngine.from_layout(backend, layout, N,
                                          precision="int8", device=eng.device,
                                          metrics=NullRegistry())
